@@ -8,23 +8,34 @@ no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
-3. hold each kernel (K1-K4) against its plain PyTorch version on the card,
-   exactly equal: the main path's own inputs (the RN152-W1A2 GA population,
-   the 64-chain SA step), ragged shapes, random mode tables, the U50 kind
-   tables and the 3-D problem axis;
-4. the main path at full width: ``pack`` on RN152-W1A2 and RN152-W1A2@U50,
-   GA-NFD, 64-chain and single-chain SA-S, once through the kernels
-   (``backend="cuda"``, launch counts reset just before each run and read
-   just after) and once through host numpy (``backend="python"``); the two
-   must agree bit for bit;
-5. timing: each kernel per launch (CUDA events around a CUDA graph of
+3. hold each kernel (K1-K5) against its plain PyTorch version on the card,
+   exactly equal: the main paths' own inputs (the RN152-W1A2 GA population,
+   the 64-chain SA step, the portfolio's stacked two-island population and
+   8-chain fleet step), ragged shapes, random mode tables, the U50 kind
+   tables, int32 extremes and the 3-D problem axis; K5 also against a
+   K1/K2 launch plus a K3/K4 launch on the same tensors;
+4. the engines' main path at full width: ``pack`` on RN152-W1A2 and
+   RN152-W1A2@U50, GA-NFD, 64-chain and single-chain SA-S, once through
+   the kernels (``backend="cuda"``, launch counts reset just before each
+   run and read just after) and once through host numpy
+   (``backend="python"``); the two must agree bit for bit;
+5. the portfolio's main path at full width: ``pack(prob, "portfolio")`` on
+   both problems with the default lineup (4 islands: two GA-NFD, one
+   8-chain SA-S fleet, one SA-NFD), fused barriers through K5 on ``cuda``
+   against host numpy, and one ``auto=True`` race on RN152-W1A2; results,
+   barriers, migrations, strides (and the race's ledger) bit-identical,
+   launch counts read per run;
+6. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
-   call with the host<->device copies, and those copies on their own;
-   then each engine's generation / step loop alone (set-up excluded),
-   ``python`` and ``cuda`` in turns, split per step into host time and
-   ops-layer time;
-6. one cuda loop of each engine under ``torch.profiler``: the device's
-   busy share of the loop and its time in kernels and in copies.
+   call with the host<->device copies, and those copies on their own (for
+   K5 also the separate K1 + K3 launches it replaces); then each engine's
+   generation / step loop alone (set-up excluded), ``python`` and ``cuda``
+   in turns, split per step into host time and ops-layer time; the
+   portfolio's wall time per engine group and per barrier, a second pair
+   of runs in the other order;
+7. one cuda loop of each engine, and one cuda portfolio run on each
+   problem, under ``torch.profiler``: the device's busy share and its time
+   in kernels and in copies.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and ``nvcc``; imports
@@ -52,6 +63,12 @@ GA_GENS = 40
 SA_CHAINS = 64
 SA_ITERS = 2000
 SA1_ITERS = 2000
+# the portfolio's main path: the default lineup at the paper's widths
+PORTFOLIO = dict(
+    n_islands=4, algorithms=("ga-nfd", "sa-s", "sa-nfd"), sa_chains=8,
+    migration_every=64, patience=10**9, max_seconds=1e9,
+    max_generations=40, max_iterations=1280,
+)
 
 KERNELS = {
     # wrapper name: (source, replaced Pallas kernel)
@@ -71,7 +88,18 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/binpack_sa_step.cu",
         "src/repro/kernels/binpack_sa_step/kernel.py:85",
     ),
+    "portfolio_step_cuda": (
+        "src/repro_torch/kernels/csrc/binpack_portfolio_step.cu",
+        "src/repro/kernels/binpack_portfolio_step/kernel.py:28",
+    ),
+    "portfolio_step_kinds_cuda": (
+        "src/repro_torch/kernels/csrc/binpack_portfolio_step.cu",
+        "src/repro/kernels/binpack_portfolio_step/kernel.py:41",
+    ),
 }
+# the kernel each main path must launch (the portfolio's odd cycles also
+# launch the fitness and SA-delta kernels)
+PORTFOLIO_KERNELS = ("portfolio_step_cuda", "portfolio_step_kinds_cuda")
 
 
 def nvidia_smi() -> str:
@@ -84,26 +112,44 @@ def nvidia_smi() -> str:
 
 # ------------------------------------------------------------------ inputs
 def main_path_inputs(device):
-    """The kernels' inputs exactly as the main path builds them: the GA's
+    """The kernels' inputs exactly as the main paths build them: the GA's
     initial (n_pop, n) population geometry and the SA fleet's first
-    (64, 2 * swap_moves) step request, on RN152-W1A2 and its U50 variant."""
+    (64, 2 * swap_moves) step request; for the portfolio, its two GA
+    islands' stacked (2, n_pop, n) geometry (seeds 0 and 3 of the default
+    lineup) and its 8-chain fleet's first (8, 2 * swap_moves) request
+    (seed 1) — on RN152-W1A2 and its U50 variant."""
     import numpy as np
 
     import repro_torch.core as rc
+    from repro_torch.core.ga import stack_geometry
 
     hp = rc.hyperparams(PROBLEM)
-    out = {}
-    for dev in (None, DEVICE_U50):
-        prob = rc.get_problem(PROBLEM, device=dev)
-        ga = rc.make_packer("ga-nfd", seed=0, backend="cuda", device=device, **hp)
-        run = ga._start_run(prob, np.random.default_rng(0), None, "cuda")
-        sa = rc.make_packer("sa-s", seed=0, backend="cuda", device=device,
-                            n_chains=SA_CHAINS, **hp)
-        st = sa._block_start([prob], [np.random.default_rng(0)], [[]], "cuda")
+
+    def first_request(prob, n_chains, seed, n_slots=None):
+        sa = rc.make_packer("sa-s", seed=seed, backend="cuda", device=device,
+                            n_chains=n_chains, **hp)
+        sa._hetero = prob.n_kinds > 1
+        st = sa._block_start([prob], [np.random.default_rng(seed)], [[]], "cuda",
+                             n_slots=n_slots)
         gen = sa._block_gen(st)
         req = next(gen)
         gen.close()
-        out[dev] = dict(prob=prob, W=run.W, H=run.H, K=run.Km, req=req)
+        return req
+
+    out = {}
+    for dev in (None, DEVICE_U50):
+        prob = rc.get_problem(PROBLEM, device=dev)
+        runs = []
+        for seed in (0, 3):
+            ga = rc.make_packer("ga-nfd", seed=seed, backend="cuda", device=device, **hp)
+            runs.append(ga._start_run(prob, np.random.default_rng(seed), None, "cuda"))
+        run = runs[0]
+        W2, H2, K2 = stack_geometry(runs)
+        out[dev] = dict(
+            prob=prob, W=run.W, H=run.H, K=run.Km, req=first_request(prob, SA_CHAINS, 0),
+            W2=W2, H2=H2, K2=K2,
+            req8=first_request(prob, PORTFOLIO["sa_chains"], 1, n_slots=prob.n),
+        )
     return out
 
 
@@ -139,6 +185,10 @@ def check_kernels(inputs, device) -> dict:
     from repro_torch.kernels.binpack_fitness import (
         binpack_fitness_cuda, binpack_fitness_kinds_cuda,
         binpack_fitness_kinds_ref, binpack_fitness_ref, population_costs,
+    )
+    from repro_torch.kernels.binpack_portfolio_step import (
+        portfolio_step, portfolio_step_cuda, portfolio_step_kinds_cuda,
+        portfolio_step_kinds_ref, portfolio_step_ref,
     )
     from repro_torch.kernels.binpack_sa_step import (
         sa_step_deltas, sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
@@ -183,7 +233,31 @@ def check_kernels(inputs, device) -> dict:
         record("sa_step_deltas_kinds_cuda", sa_step_deltas_kinds_cuda(*t, kt),
                sa_step_deltas_kinds_ref(*t, kt), label)
 
-    # the main path's own inputs
+    def k5(w, h, ow, oh, nw, nh, modes, label):
+        """K5 against its plain version and against a K1 launch plus a K3
+        launch on the same tensors (both halves)."""
+        nb = np.shape(w)[-1]
+        w, h = dev(np.reshape(w, (-1, nb)), np.reshape(h, (-1, nb)))
+        step = dev(ow, oh, nw, nh)
+        got = portfolio_step_cuda(w, h, *step, modes)
+        for part, want, sep in zip(got, portfolio_step_ref(w, h, *step, modes),
+                                   (binpack_fitness_cuda(w, h, modes),
+                                    sa_step_deltas_cuda(*step, modes))):
+            record("portfolio_step_cuda", part, want, label)
+            record("portfolio_step_cuda", part, sep, label + " vs K1 + K3")
+
+    def k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt, label):
+        nb = np.shape(w)[-1]
+        w, h, k = dev(*(np.reshape(x, (-1, nb)) for x in (w, h, k)))
+        step = dev(ow, oh, ok, nw, nh, nk)
+        got = portfolio_step_kinds_cuda(w, h, k, *step, kt)
+        for part, want, sep in zip(got, portfolio_step_kinds_ref(w, h, k, *step, kt),
+                                   (binpack_fitness_kinds_cuda(w, h, k, kt),
+                                    sa_step_deltas_kinds_cuda(*step, kt))):
+            record("portfolio_step_kinds_cuda", part, want, label)
+            record("portfolio_step_kinds_cuda", part, sep, label + " vs K2 + K4")
+
+    # the main paths' own inputs
     hom, het = inputs[None], inputs[DEVICE_U50]
     kt_u50 = het["prob"].kind_tables
     k1(hom["W"], hom["H"], hom["prob"].kind_tables[0][1], f"GA population {hom['W'].shape}")
@@ -192,6 +266,12 @@ def check_kernels(inputs, device) -> dict:
     k3(ow, oh, nw, nh, BRAM18_MODES, f"SA step {ow.shape}")
     ow, oh, nw, nh, ok, nk = het["req"]
     k4(ow, oh, ok, nw, nh, nk, kt_u50, f"SA step @U50 {ow.shape}")
+    ow, oh, nw, nh, _, _ = hom["req8"]
+    k5(hom["W2"], hom["H2"], ow, oh, nw, nh, hom["prob"].kind_tables[0][1],
+       f"portfolio {hom['W2'].shape} + {ow.shape}")
+    ow, oh, nw, nh, ok, nk = het["req8"]
+    k5k(het["W2"], het["H2"], het["K2"], ow, oh, ok, nw, nh, nk, kt_u50,
+        f"portfolio @U50 {het['W2'].shape} + {ow.shape}")
 
     # ragged shapes, random mode tables, the U50 tables
     rng = np.random.default_rng(7)
@@ -205,6 +285,14 @@ def check_kernels(inputs, device) -> dict:
         nw, nh, nk = random_planes(rng, (c, t), n_kinds=2)
         k3(ow, oh, nw, nh, BRAM18_MODES, f"ragged {(c, t)}")
         k4(ow, oh, ok, nw, nh, nk, kt_u50, f"ragged U50 {(c, t)}")
+    for (a, p, nb), (c, t) in [((1, 1, 1), (1, 1)), ((2, 75, 2253), (8, 4)),
+                               ((3, 5, 37), (0, 4)), ((0, 75, 300), (300, 6)),
+                               ((4, 7, 129), (1000, 2)), ((1, 300, 64), (257, 130))]:
+        w, h, k = random_planes(rng, (a, p, nb), n_kinds=2)
+        ow, oh, ok = random_planes(rng, (c, t), n_kinds=2)
+        nw, nh, nk = random_planes(rng, (c, t), n_kinds=2)
+        k5(w, h, ow, oh, nw, nh, BRAM18_MODES, f"ragged {(a, p, nb)} + {(c, t)}")
+        k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt_u50, f"ragged U50 {(a, p, nb)} + {(c, t)}")
     # int32 extremes: the kernels' unsigned 32-bit ceil-division stays exact
     big = (2**31 - 1000, 2**31)
     modes_big = ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1))
@@ -217,6 +305,9 @@ def check_kernels(inputs, device) -> dict:
     k3(w[:, :4], h[:, :4], w[:, 4:8], h[:, 4:8], modes_big, "int32 extremes")
     k4(w[:, :4], h[:, :4], k[:, :4], w[:, 4:8], h[:, 4:8], k[:, 4:8], kt_big,
        "int32 extremes")
+    k5(w, h, w[:, :4], h[:, :4], w[:, 4:8], h[:, 4:8], modes_big, "int32 extremes")
+    k5k(w, h, k, w[:, :4], h[:, :4], k[:, :4], w[:, 4:8], h[:, 4:8], k[:, 4:8], kt_big,
+        "int32 extremes")
     for seed in range(12):
         r = np.random.default_rng(100 + seed)
         kt = random_kind_tables(r)
@@ -228,6 +319,8 @@ def check_kernels(inputs, device) -> dict:
         nw, nh, nk = random_planes(r, (p, 4), n_kinds=len(kt))
         k3(ow, oh, nw, nh, kt[0][1], f"random modes seed {seed}")
         k4(ow, oh, ok, nw, nh, nk, kt, f"random tables seed {seed}")
+        k5(w, h, ow, oh, nw, nh, kt[0][1], f"random modes seed {seed}")
+        k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt, f"random tables seed {seed}")
 
     # the (NP, P, NB) / (NP, C, T) problem axis through the ops layer
     w, h, k = random_planes(rng, (3, 5, 129), n_kinds=2)
@@ -246,6 +339,14 @@ def check_kernels(inputs, device) -> dict:
         b = sa_step_deltas(ow, oh, nw, nh, backend="python", **kw)
         if a.shape != (4, 64) or not np.array_equal(a, b):
             raise AssertionError(f"sa_step_deltas 3-D {sorted(kw)}: cuda != python")
+    w, h, k = hom["W2"], hom["H2"], het["K2"]
+    ow, oh, ok = random_planes(rng, (8, 4), n_kinds=2)
+    nw, nh, nk = random_planes(rng, (8, 4), n_kinds=2)
+    for kw in ({}, dict(kinds=k, old_k=ok, new_k=nk, kind_tables=kt_u50)):
+        a = portfolio_step(w, h, ow, oh, nw, nh, backend="cuda", device=device, **kw)
+        b = portfolio_step(w, h, ow, oh, nw, nh, backend="python", **kw)
+        if a[0].shape != w.shape[:2] or not all(map(np.array_equal, a, b)):
+            raise AssertionError(f"portfolio_step 3-D {sorted(kw)}: cuda != python")
     for name in KERNELS:
         print(f"[kernels] {name}: {n_cases[name]} cases, max |kernel - plain| = {err[name]}")
     return err
@@ -314,12 +415,126 @@ def main_path_runs(device) -> dict:
               f"cuda {tk:.3f}s python {tp:.3f}s  (bit-identical) launches {json.dumps(nk)}")
     print(f"[main] launches: {json.dumps(launches)}")
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name not in PORTFOLIO_KERNELS:
             raise AssertionError(f"{name} was not launched on the main path")
+        if n > 0 and name in PORTFOLIO_KERNELS:
+            raise AssertionError(f"{name} was launched outside the portfolio")
     return launches
 
 
 # ----------------------------------------------------------------- phase 5
+def portfolio_key(r):
+    """Everything the portfolio's parity contract covers (the result and
+    the barrier bookkeeping; racing adds its ledger), nothing wall-clock."""
+    key = list(result_key(r)) + [r.params["barriers"], r.params["migrations"],
+                           r.params["strides"]]
+    race = r.params.get("race")
+    if race is not None:
+        key += [race["budget"], race["spent"], race["work"], race["survivors"],
+                [(e["island"], e["barrier"], e["value"]) for e in race["eliminated"]]]
+    return key
+
+
+def portfolio_run(dev, backend, device, **kw):
+    """One ``pack(prob, "portfolio")`` run with its launch counts (set to 0
+    just before the run, read just after) and wall time."""
+    import repro_torch.core as rc
+    from repro_torch import kernels
+
+    prob = rc.get_problem(PROBLEM, device=dev)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    r = rc.pack(prob, "portfolio", seed=0, backend=backend, device=device,
+                **dict(rc.hyperparams(PROBLEM), **PORTFOLIO, **kw))
+    return r, time.perf_counter() - t, kernels.launch_counts()
+
+
+def portfolio_runs(device) -> dict:
+    """The portfolio's main path on RN152-W1A2 and RN152-W1A2@U50: the
+    default lineup through the kernels (fused barriers through K5) and
+    through host numpy, bit for bit; then one ``auto=True`` race on
+    RN152-W1A2 the same way.  Returns the launch counts summed over the
+    kernel runs and each run's record."""
+    cases = [(None, {}), (DEVICE_U50, {}), (None, dict(auto=True))]
+    launches = {name: 0 for name in KERNELS}
+    runs = {}
+    for dev, kw in cases:
+        label = f"portfolio {PROBLEM}{'@' + dev if dev else ''}" + (" auto" if kw else "")
+        rk, tk, nk = portfolio_run(dev, "cuda", device, **kw)
+        rp, tp, np_ = portfolio_run(dev, "python", device, **kw)
+        for r in (rk, rp):
+            r.solution.validate()
+            if r.solution.cost() != r.solution.cost_full() or r.cost != r.solution.cost():
+                raise AssertionError(f"{label}: cost bookkeeping disagrees")
+            if r.params["truncated_by_wallclock"]:
+                raise AssertionError(f"{label}: stopped on the wall clock")
+        if portfolio_key(rk) != portfolio_key(rp):
+            raise AssertionError(f"{label}: cuda and python backends diverge")
+        if any(np_.values()):
+            raise AssertionError(f"{label}: python run launched kernels {np_}")
+        kinds = "_kinds" if dev else ""
+        if not kw:
+            # the default lineup fuses its fleet and GA pair on the card; its
+            # odd cycles (the fleet done while the GA runs on, the initial
+            # evaluations) launch the fitness and SA-delta kernels
+            if rk.params["fused"] is not True or rp.params["fused"] is not False:
+                raise AssertionError(f"{label}: fused {rk.params['fused']} on cuda, "
+                                     f"{rp.params['fused']} on python")
+            need = (f"portfolio_step{kinds}_cuda", f"binpack_fitness{kinds}_cuda",
+                    f"sa_step_deltas{kinds}_cuda")
+        else:
+            need = (f"binpack_fitness{kinds}_cuda", f"sa_step_deltas{kinds}_cuda")
+        if any(nk[n] <= 0 for n in need):
+            raise AssertionError(f"{label}: launches {nk}, expected each of {need}")
+        for name, n in nk.items():
+            launches[name] += n
+        runs[label] = dict(
+            cost=rk.cost, iterations=rk.iterations, barriers=rk.params["barriers"],
+            migrations=rk.params["migrations"], strides=rk.params["strides"],
+            fused=rk.params["fused"], launches=nk, seconds={"cuda": tk, "python": tp},
+            group_seconds={"cuda": [rk.params["group_seconds"]],
+                           "python": [rp.params["group_seconds"]]},
+            barrier_seconds={"cuda": [sum(rk.params["barrier_seconds"])],
+                             "python": [sum(rp.params["barrier_seconds"])]},
+            race={k: rk.params["race"][k] for k in ("budget", "spent", "survivors",
+                                                     "eliminated")}
+            if kw else None,
+        )
+        print(f"[portfolio] {label}: cost={rk.cost} iterations={rk.iterations} "
+              f"barriers={rk.params['barriers']} migrations={rk.params['migrations']} "
+              f"strides={json.dumps(rk.params['strides'])} fused={rk.params['fused']} "
+              f"cuda {tk:.3f}s python {tp:.3f}s (bit-identical) launches {json.dumps(nk)}"
+              + (f" race {json.dumps(runs[label]['race'])}" if kw else ""))
+    print(f"[portfolio] launches: {json.dumps(launches)}")
+    for name in PORTFOLIO_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the portfolio's main path")
+    return dict(launches=launches, runs=runs)
+
+
+def portfolio_timing(runs, device) -> None:
+    """A second cuda / python pair of each default-lineup run, in the other
+    order (cuda first), so each backend has two samples of its wall time
+    per engine group and per barrier.  Fills ``runs`` in place."""
+    for dev in (None, DEVICE_U50):
+        label = f"portfolio {PROBLEM}{'@' + dev if dev else ''}"
+        rec = runs[label]
+        for backend in ("cuda", "python"):
+            r, t, _ = portfolio_run(dev, backend, device)
+            if r.cost != rec["cost"] or r.iterations != rec["iterations"]:
+                raise AssertionError(f"{label} {backend}: repeat run diverges")
+            rec["group_seconds"][backend].append(r.params["group_seconds"])
+            rec["barrier_seconds"][backend].append(sum(r.params["barrier_seconds"]))
+        print(f"[portfolio-timing] {label}, seconds per engine group (two samples "
+              f"each; a fused pair as gI+gJ:fused) and summed over barriers: " + "; ".join(
+                  f"{b}: " + " | ".join(
+                      json.dumps({k: round(v, 4) for k, v in g.items()})
+                      for g in rec["group_seconds"][b])
+                  + f" barriers {' '.join(f'{x:.3f}' for x in rec['barrier_seconds'][b])} s"
+                  for b in ("python", "cuda")))
+
+
+# ----------------------------------------------------------------- phase 6
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
     import torch
@@ -373,6 +588,10 @@ def kernel_timings(inputs, device) -> dict:
         binpack_fitness_cuda, binpack_fitness_kinds_cuda,
         binpack_fitness_kinds_ref, binpack_fitness_ref, population_costs,
     )
+    from repro_torch.kernels.binpack_portfolio_step import (
+        portfolio_step, portfolio_step_cuda, portfolio_step_kinds_cuda,
+        portfolio_step_kinds_ref, portfolio_step_ref,
+    )
     from repro_torch.kernels.binpack_sa_step import (
         sa_step_deltas, sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
         sa_step_deltas_kinds_ref, sa_step_deltas_ref,
@@ -391,9 +610,28 @@ def kernel_timings(inputs, device) -> dict:
     sa_hom = dev(*hom["req"][:4])
     sa_het = dev(*het["req"])  # ow, oh, nw, nh, ok, nk
     ow, oh, nw, nh, ok, nk = sa_het
+    # the portfolio's fused step: its stacked (2 * n_pop, n) populations and
+    # its 8-chain fleet step, as K5 receives them
+    nb = hom["W2"].shape[-1]
+    W2, H2 = dev(hom["W2"].reshape(-1, nb), hom["H2"].reshape(-1, nb))
+    Wk2, Hk2, Kk2 = dev(*(het[x].reshape(-1, nb) for x in ("W2", "H2", "K2")))
+    p_hom = dev(*hom["req8"][:4])
+    p_het = dev(*het["req8"])  # ow, oh, nw, nh, ok, nk
+    pw, ph, pnw, pnh, pok, pnk = p_het
+    p_het_args = (pw, ph, pok, pnw, pnh, pnk)
 
     def live(w):
         return int((w > 0).sum())
+
+    def sa_bytes(ow, nw, plane_bytes):
+        """An SA step's bytes: the widths in full, the other planes at live
+        slots only, the int64 deltas written once."""
+        return (4 * (ow.numel() + nw.numel()) + plane_bytes * (live(ow) + live(nw))
+                + 8 * ow.shape[0])
+
+    def kind_ops(pairs):
+        return 4 * sum(len(m) * int(((x > 0) & (k == i)).sum())
+                       for i, (_, m) in enumerate(kt) for x, k in pairs)
 
     # Bytes the function must move: every width read once (it says which
     # slots are live), the other planes read only at live slots (an empty
@@ -445,6 +683,35 @@ def kernel_timings(inputs, device) -> dict:
                               for x, k in ((ow, ok), (nw, nk))),
             shape=tuple(ow.shape),
         ),
+        "portfolio_step_cuda": dict(
+            kernel=lambda: portfolio_step_cuda(W2, H2, *p_hom, BRAM18_MODES),
+            plain=lambda: portfolio_step_ref(W2, H2, *p_hom, BRAM18_MODES),
+            ops=lambda: portfolio_step(hom["W2"], hom["H2"], *hom["req8"][:4],
+                                       backend="cuda", device=device),
+            # what one fused launch replaces: a K1 launch and a K3 launch
+            separate=lambda: (binpack_fitness_cuda(W2, H2, BRAM18_MODES),
+                              sa_step_deltas_cuda(*p_hom, BRAM18_MODES)),
+            host=(hom["W2"], hom["H2"], *hom["req8"][:4]),
+            bytes=4 * W2.numel() + 4 * live(W2) + 8 * W2.shape[0]
+            + sa_bytes(p_hom[0], p_hom[2], 4),
+            ops_count=4 * n_modes_hom * (live(W2) + live(p_hom[0]) + live(p_hom[2])),
+            shape=(tuple(hom["W2"].shape), tuple(p_hom[0].shape)),
+        ),
+        "portfolio_step_kinds_cuda": dict(
+            kernel=lambda: portfolio_step_kinds_cuda(Wk2, Hk2, Kk2, *p_het_args, kt),
+            plain=lambda: portfolio_step_kinds_ref(Wk2, Hk2, Kk2, *p_het_args, kt),
+            ops=lambda: portfolio_step(het["W2"], het["H2"], *het["req8"][:4],
+                                       backend="cuda", device=device, kinds=het["K2"],
+                                       old_k=het["req8"][4], new_k=het["req8"][5],
+                                       kind_tables=kt),
+            separate=lambda: (binpack_fitness_kinds_cuda(Wk2, Hk2, Kk2, kt),
+                              sa_step_deltas_kinds_cuda(*p_het_args, kt)),
+            host=(het["W2"], het["H2"], het["K2"], *het["req8"]),
+            bytes=4 * Wk2.numel() + 8 * live(Wk2) + 8 * Wk2.shape[0]
+            + sa_bytes(pw, pnw, 8),
+            ops_count=kind_ops(((Wk2, Kk2), (pw, pok), (pnw, pnk))),
+            shape=(tuple(het["W2"].shape), tuple(pw.shape)),
+        ),
     }
     out = {}
     for name, c in cases.items():
@@ -459,6 +726,10 @@ def kernel_timings(inputs, device) -> dict:
         # as `_plane` does it, and the (rows,) int64 result back
         host = [np.ascontiguousarray(x, dtype=np.int32) for x in c["host"]]
         res = c["kernel"]()
+        res = res if isinstance(res, tuple) else (res,)  # K5 returns both halves
+
+        def d2h():
+            return [x.cpu() for x in res]
 
         def h2d():
             return [torch.from_numpy(x).to(device) for x in host]
@@ -474,7 +745,7 @@ def kernel_timings(inputs, device) -> dict:
             ops_ms=time_host(c["ops"], 200),
             h2d_ms=time_events(h2d, 200),
             h2d_host_ms=time_host(h2d_sync, 200),
-            d2h_host_ms=time_host(res.cpu, 200),
+            d2h_host_ms=time_host(d2h, 200),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=c["bytes"],
@@ -482,6 +753,12 @@ def kernel_timings(inputs, device) -> dict:
             shape=c["shape"],
         )
         o = out[name]
+        if "separate" in c:
+            # the separate pair at the same shapes, timed like the kernel (a
+            # graph of pairs, per pair), in turns with a third kernel sample
+            s1 = time_graph(c["separate"], 200)
+            o["ms"] = min(o["ms"], time_graph(c["kernel"], 200))
+            o["separate_ms"] = min(s1, time_graph(c["separate"], 200))
         print(f"[timing] {name} {c['shape']}: kernel {o['ms']*1e3:.2f} us/launch "
               f"(graph), wrapper call {o['call_ms']*1e3:.2f} us, plain "
               f"{o['plain_ms']*1e3:.2f} us, ops layer with copies "
@@ -489,7 +766,9 @@ def kernel_timings(inputs, device) -> dict:
               f"by events, {o['h2d_host_ms']*1e3:.2f} us by host clock; "
               f"device->host {o['d2h_host_ms']*1e3:.2f} us), bound "
               f"{o['bound_ms']*1e3:.4f} us ({o['bound_by']}: {o['bytes']} B, "
-              f"{o['operations']} ops)")
+              f"{o['operations']} ops)"
+              + (f"; the separate K1/K2 + K3/K4 pair it replaces "
+                 f"{o['separate_ms']*1e3:.2f} us" if "separate_ms" in o else ""))
     return out
 
 
@@ -652,10 +931,10 @@ def _union_us(intervals) -> float:
 
 
 def profile_loops(device) -> dict:
-    """One cuda loop of each main-path engine under ``torch.profiler`` (CPU
-    and CUDA activities): the device's busy time (the union of its kernel
-    and copy intervals) over the loop's wall time, and the device time by
-    kind.  Profiling slows the host, so the busy share is a lower bound
+    """One cuda loop of each main-path engine, and one cuda portfolio run
+    per problem, under ``torch.profiler`` (CPU and CUDA activities): the
+    device's busy time (the union of its kernel and copy intervals) over
+    the wall time, and the device time by kind (`device_share`).  Profiling slows the host, so the busy share is a lower bound
     on the unprofiled run's.  Where the profiler records no device event,
     the device numbers are reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
@@ -680,37 +959,48 @@ def profile_loops(device) -> dict:
 
             r = engine_loop(alg, kw, rc.get_problem(PROBLEM, device=dev), "cuda",
                             device, around)
-            by_kind = {"kernel": [], "HtoD": [], "DtoH": [], "other": []}
-            for e in holder["prof"].events():
-                if "CUDA" not in str(getattr(e, "device_type", "")):
-                    continue
-                iv = (e.time_range.start, e.time_range.end)
-                kind = ("HtoD" if "HtoD" in e.name else "DtoH" if "DtoH" in e.name
-                        else "other" if e.name.startswith(("Memcpy", "Memset"))
-                        else "kernel")
-                by_kind[kind].append(iv)
-            wall_us = r["loop"] * 1e6
-            every = [iv for ivs in by_kind.values() for iv in ivs]
             key = f"{label} {prob_name}"
-            if not every:
-                out[key] = dict(wall_us=wall_us, device="not measured")
-                print(f"[profile] {key}: no device events recorded; device time "
-                      f"not measured")
-                continue
-            busy = _union_us(every)
-            out[key] = dict(
-                wall_us=wall_us, steps=len(r["steps"]), busy_us=busy,
-                busy_share=busy / wall_us,
-                **{f"{k}_us": sum(b - a for a, b in v) for k, v in by_kind.items()},
-                **{f"{k}_n": len(v) for k, v in by_kind.items()},
-            )
-            o = out[key]
-            print(f"[profile] {key}, {o['steps']} steps: loop {wall_us:.0f} us "
-                  f"(profiled), device busy {busy:.0f} us = {o['busy_share']:.4f}; "
-                  f"kernels {o['kernel_us']:.0f} us / {o['kernel_n']}, HtoD "
-                  f"{o['HtoD_us']:.0f} us / {o['HtoD_n']}, DtoH {o['DtoH_us']:.0f} us "
-                  f"/ {o['DtoH_n']}, other {o['other_us']:.0f} us / {o['other_n']}")
+            out[key] = device_share(holder["prof"], r["loop"] * 1e6, key,
+                                    f"{len(r['steps'])} steps")
+    # the portfolio's default lineup, the whole run (set-up included): the
+    # main lane and the side-lane thread launch into one profile
+    for dev in (None, DEVICE_U50):
+        key = f"portfolio {PROBLEM}{'@' + dev if dev else ''}"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r, wall, _ = portfolio_run(dev, "cuda", device)
+        out[key] = device_share(prof, wall * 1e6, key, f"{r.params['barriers']} barriers")
     return out
+
+
+def device_share(prof, wall_us: float, key: str, what: str) -> dict:
+    """The device's busy time (the union of its kernel and copy intervals)
+    over ``wall_us``, and its time by kind, from one profile; "not
+    measured" where the profiler recorded no device event."""
+    by_kind = {"kernel": [], "HtoD": [], "DtoH": [], "other": []}
+    for e in prof.events():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        kind = ("HtoD" if "HtoD" in e.name else "DtoH" if "DtoH" in e.name
+                else "other" if e.name.startswith(("Memcpy", "Memset"))
+                else "kernel")
+        by_kind[kind].append(iv)
+    every = [iv for ivs in by_kind.values() for iv in ivs]
+    if not every:
+        print(f"[profile] {key}: no device events recorded; device time not measured")
+        return dict(wall_us=wall_us, device="not measured")
+    busy = _union_us(every)
+    o = dict(
+        wall_us=wall_us, what=what, busy_us=busy, busy_share=busy / wall_us,
+        **{f"{k}_us": sum(b - a for a, b in v) for k, v in by_kind.items()},
+        **{f"{k}_n": len(v) for k, v in by_kind.items()},
+    )
+    print(f"[profile] {key}, {what}: wall {wall_us:.0f} us (profiled), device busy "
+          f"{busy:.0f} us = {o['busy_share']:.4f}; kernels {o['kernel_us']:.0f} us / "
+          f"{o['kernel_n']}, HtoD {o['HtoD_us']:.0f} us / {o['HtoD_n']}, DtoH "
+          f"{o['DtoH_us']:.0f} us / {o['DtoH_n']}, other {o['other_us']:.0f} us / "
+          f"{o['other_n']}")
+    return o
 
 
 def main() -> int:
@@ -740,23 +1030,28 @@ def main() -> int:
     inputs = main_path_inputs(device)
     errs = check_kernels(inputs, device)
     launches = main_path_runs(device)
+    portfolio = portfolio_runs(device)
     timings = kernel_timings(inputs, device)
     loops = loop_breakdown(device)
+    portfolio_timing(portfolio["runs"], device)
     profiled = profile_loops(device)
 
     record = []
     for name, (source, replaces) in KERNELS.items():
         tm = timings[name]
+        by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name]}
         record.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name],
+            launches=sum(by_path.values()), max_abs_err=errs[name],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-            bound_by=tm["bound_by"], library_ms=None,
+            bound_by=tm["bound_by"], library_ms=None, launches_by_path=by_path,
             call_ms=tm["call_ms"], ops_ms=tm["ops_ms"], h2d_ms=tm["h2d_ms"],
             h2d_host_ms=tm["h2d_host_ms"], d2h_host_ms=tm["d2h_host_ms"],
             shape=tm["shape"],
+            **({"separate_ms": tm["separate_ms"]} if "separate_ms" in tm else {}),
         ))
     print(f"[loops] {json.dumps(loops)}")
+    print(f"[portfolio] {json.dumps(portfolio['runs'])}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

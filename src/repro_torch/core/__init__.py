@@ -4,8 +4,9 @@ PyTorch / CUDA port of `repro.core`).
 Cardinality-constrained, variable-bin-size bin packing of parameter
 memories onto physical RAM grids, solved with the Next-Fit Dynamic
 heuristic hybridized into genetic algorithms and simulated annealing.  The
-GA's population fitness and the SA's delta costs run through the
-hand-written CUDA kernels of `repro_torch.kernels`.
+GA's population fitness and the SA's delta costs (and, in the island
+portfolio, both at once) run through the hand-written CUDA kernels of
+`repro_torch.kernels`.
 """
 from .accelerators import (  # noqa: F401
     ACCELERATORS,
@@ -22,6 +23,12 @@ from .accelerators import (  # noqa: F401
 from .api import ALGORITHMS, make_packer, pack  # noqa: F401
 from .ga import GeneticPacker, buffer_swap, kind_reassign  # noqa: F401
 from .nfd import nfd_from_scratch, nfd_pack_order, nfd_repack  # noqa: F401
+from .portfolio import (  # noqa: F401
+    DEFAULT_RACE_GRID,
+    IslandSpec,
+    TruncationWarning,
+    pack_portfolio,
+)
 from .problem import (  # noqa: F401
     BRAM18,
     BRAM18_CAPACITY_BITS,

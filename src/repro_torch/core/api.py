@@ -21,6 +21,7 @@ ALGORITHMS = (
     "ga-s",
     "sa-nfd",
     "sa-s",
+    "portfolio",
     "nfd",
     "ffd",
     "next-fit",
@@ -133,6 +134,8 @@ def pack(
     p_adm_w, p_adm_h, sa_t0, sa_rc (see :func:`make_packer` for the full
     kwarg reference, including budgets, ``backend`` and ``device``).
     ``intra_layer=True`` enforces the paper's intra-layer packing scenario.
+    ``"portfolio"`` runs the island portfolio (:func:`repro_torch.core.
+    portfolio.pack_portfolio`; ``hyper`` then also takes its arguments).
     For the GA the batched backends (``torch``/``cuda``) evaluate each
     generation's fitness in one call; for "sa-s" the backend computes the
     per-step delta costs (pass ``n_chains=K`` for K temperature-laddered
@@ -156,9 +159,18 @@ def pack(
         )
         return packer.pack(prob)
     if algorithm == "portfolio":
-        raise NotImplementedError(
-            "the island portfolio is not ported yet (it comes with the "
-            "portfolio slice, together with its fused portfolio-step kernel)"
+        # the fleet-native island portfolio: deterministic per seed, with
+        # migration at iteration/generation barriers
+        from .portfolio import pack_portfolio
+
+        return pack_portfolio(
+            prob,
+            seed=seed,
+            max_seconds=max_seconds,
+            intra_layer=intra_layer,
+            backend=backend,
+            device=device,
+            **hyper,
         )
 
     # deterministic one-shot heuristics

@@ -27,7 +27,9 @@ All backends are bit-identical for a fixed seed: cost arithmetic is exact
 integer math and the RNG consumption order never depends on the backend.
 The generation loop is factored into phase helpers over a `_GARun` state
 (`_start_run` / `_mutation_phase` / `_apply_costs` / `_track_best` /
-`_tournament`), as in the reference.
+`_tournament`), as in the reference; the ``lockstep_*`` functions drive
+several runs together and stack their fitness into one leading-axis call
+(the island portfolio, `core.portfolio`).
 
 Heterogeneous OCM problems (``PackingProblem(ocm=...)``) add a RAM-kind
 dimension: with probability ``p_kind`` a mutation reassigns random bins'
@@ -309,13 +311,9 @@ class GeneticPacker:
     def _batched_costs(self, run: "_GARun") -> np.ndarray:
         """One generation's population totals on ``self.device`` (float64
         holding exact integers, as the reference's batched path)."""
-        from ..kernels.binpack_fitness.ops import population_costs
-
-        totals = population_costs(
-            run.W, run.H, modes=run.modes0, backend=run.backend,
-            kinds=run.Km, kind_tables=run.kt, device=self.device,
+        return _population_totals(
+            run.W, run.H, run.Km, run, run.backend, self.device
         )
-        return np.asarray(totals, dtype=np.float64)
 
     # ---------------------------------------------------------------- pack
     #
@@ -509,6 +507,61 @@ class GeneticPacker:
             ),
         )
 
+    # ------------------------------------------------- portfolio barrier hooks
+    def _migrate_in(self, run: "_GARun", sol: Solution) -> bool:
+        """Portfolio barrier hook: the migrant replaces this run's worst
+        individual (by penalized selection cost) iff strictly better.  A
+        finished run is never touched and ``stale`` is never reset, so
+        migration cannot revive a converged island."""
+        if run.done or run.stale >= self.patience:
+            return False
+        sel = (
+            run.costs
+            if run.ovfs is None
+            else run.costs + run.inv_pen * run.ovfs
+        )
+        worst = int(np.argmax(sel))
+        cost = float(sol.cost())
+        ovf = float(sol.inventory_overflow()) if run.ovfs is not None else 0.0
+        mig_sel = cost + run.inv_pen * ovf
+        if mig_sel >= float(sel[worst]):
+            return False
+        mig = sol.copy()
+        run.pop[worst] = mig
+        run.costs[worst] = cost
+        if run.ovfs is not None:
+            run.ovfs[worst] = ovf
+        run.fits[worst] = fitness(
+            mig, self.layer_weight, cost=cost, inventory_penalty=run.inv_pen,
+            overflow=None if run.ovfs is None else ovf,
+        )
+        if run.batched:
+            mig.fill_geometry(run.W[worst], run.H[worst])
+            if run.Km is not None:
+                mig.fill_kinds(run.Km[worst])
+        # fold the migrant into the best-tracking reference (no trace entry,
+        # no stale reset): otherwise the next _track_best would record the
+        # migrant as this run's own improvement and revive its patience
+        if mig_sel < run.best_sel:
+            run.best_sel = mig_sel
+            run.best_cost = int(cost)
+            run.best = mig.copy()
+        return True
+
+    def _extend_run(self, run: "_GARun", gen_limit: int) -> None:
+        """Racing budget reallocation: raise this run's generation budget to
+        at least ``gen_limit``, reviving a run that stopped *on budget*
+        (never one converged on patience or cut by the wall cap)."""
+        if run.done and run.stale < self.patience and run.gen >= self.max_generations:
+            run.done = False
+        self.max_generations = max(self.max_generations, int(gen_limit))
+
+    def _eliminate_run(self, run: "_GARun") -> None:
+        """Racing elimination: stop this run forever.  `lockstep_begin`
+        skips done runs before any mutation draw, so the surviving runs
+        consume exactly the RNG streams they would have without it."""
+        run.done = True
+
     def pack(
         self, prob: PackingProblem, init_pop: Sequence[Solution] | None = None
     ) -> PackingResult:
@@ -529,13 +582,140 @@ class GeneticPacker:
         return self._finish_run(run)
 
 
+def _population_totals(W, H, Km, run: "_GARun", backend: str, device) -> np.ndarray:
+    """Population totals of ``(..., NB)`` geometry under ``run``'s mode
+    tables, as float64 holding exact integers."""
+    from ..kernels.binpack_fitness.ops import population_costs
+
+    totals = population_costs(
+        W, H, modes=run.modes0, backend=backend, kinds=Km,
+        kind_tables=run.kt, device=device,
+    )
+    return np.asarray(totals, dtype=np.float64)
+
+
+def stack_geometry(runs: Sequence["_GARun"]):
+    """Stack several runs' ``(n_pop, NB_j)`` geometry (and kind) matrices
+    into one zero-padded ``(A, n_pop, NB_max)`` block.
+
+    Padded lanes have width 0 and cost nothing, so leading-axis totals
+    equal the per-run 2-D fitness calls exactly.  Returns ``(W, H, Km)``
+    with ``Km is None`` on single-kind problems."""
+    nb = max(r.W.shape[1] for r in runs)
+    n_pop = runs[0].W.shape[0]
+    W = np.zeros((len(runs), n_pop, nb), dtype=np.int32)
+    H = np.zeros_like(W)
+    hetero = runs[0].Km is not None
+    Km = np.zeros_like(W) if hetero else None
+    for a, r in enumerate(runs):
+        W[a, :, : r.W.shape[1]] = r.W
+        H[a, :, : r.H.shape[1]] = r.H
+        if hetero:
+            Km[a, :, : r.Km.shape[1]] = r.Km
+    return W, H, Km
+
+
+def stacked_population_costs(
+    runs: Sequence["_GARun"], backend: str, device
+) -> np.ndarray:
+    """One leading-axis ``(A, n_pop)`` fitness call over several GA runs on
+    ``device`` (see :func:`stack_geometry` for the padding contract); the
+    portfolio's island loop stacks its GA islands through it."""
+    W, H, Km = stack_geometry(runs)
+    return _population_totals(W, H, Km, runs[0], backend, device)
+
+
+def lockstep_begin(
+    pairs: Sequence[tuple[GeneticPacker, "_GARun"]],
+    gen_limit: int | None = None,
+) -> tuple[list, list]:
+    """Segment phase 1 of one lockstep generation: per-run bookkeeping
+    (budget/patience/wall checks) plus the mutation phase.
+
+    Returns ``(advanced, batches)``: ``advanced`` is the live ``(packer,
+    run)`` pairs that entered this generation, ``batches`` the pending
+    fitness work as lists of ``(packer, run, mutated)`` entries grouped by
+    population size — each batch is one stacked fitness call (directly via
+    :func:`stacked_population_costs`, or fused with SA fleet work through
+    ``binpack_portfolio_step``).  Callers feed the totals to
+    :func:`lockstep_apply`, then close the generation with
+    :func:`lockstep_finish`.  ``gen_limit`` *pauses* runs that reached a
+    portfolio barrier without marking them done."""
+    advanced: list[tuple[GeneticPacker, _GARun]] = []
+    pending: list[tuple[GeneticPacker, _GARun, list[int]]] = []
+    for packer, run in pairs:
+        if run.done:
+            continue
+        if gen_limit is not None and run.gen >= gen_limit:
+            continue
+        if run.gen >= packer.max_generations:
+            run.done = True
+            continue
+        run.gen += 1
+        now = time.perf_counter() - run.t0
+        if now > packer.max_seconds or run.stale >= packer.patience:
+            run.done = True
+            continue
+        mutated = packer._mutation_phase(run)
+        advanced.append((packer, run))
+        if run.batched and mutated:
+            pending.append((packer, run, mutated))
+    groups: dict[int, list] = {}
+    for entry in pending:
+        groups.setdefault(entry[1].W.shape[0], []).append(entry)
+    return advanced, list(groups.values())
+
+
+def lockstep_apply(batch: Sequence[tuple], totals) -> None:
+    """Segment phase 2: land one batch's stacked fitness totals (row ``a``
+    of ``totals`` belongs to ``batch[a]``'s run)."""
+    for (packer, run, mutated), tot in zip(batch, totals):
+        packer._apply_costs(run, tot, mutated)
+
+
+def lockstep_finish(advanced: Sequence[tuple]) -> bool:
+    """Segment phase 3: best tracking + tournament selection for every pair
+    that advanced; returns True while any pair advanced."""
+    for packer, run in advanced:
+        packer._track_best(run)
+        packer._tournament(run)
+    return bool(advanced)
+
+
+def lockstep_generation(
+    pairs: Sequence[tuple[GeneticPacker, "_GARun"]],
+    gen_limit: int | None = None,
+) -> bool:
+    """Advance ONE generation for every live (packer, run) pair in lockstep.
+
+    All batched pairs' mutated populations are evaluated in stacked
+    fitness calls (grouped by population size, via
+    :func:`stacked_population_costs`); each run consumes only its own RNG
+    stream, so every trajectory is bit-identical to the standalone
+    ``pack()`` loop.  ``gen_limit`` pauses runs at a portfolio barrier;
+    budget/patience/wall exhaustion marks ``run.done``.  Returns True while
+    any pair advanced."""
+    advanced, batches = lockstep_begin(pairs, gen_limit)
+    for batch in batches:
+        packer, run, _ = batch[0]
+        totals = stacked_population_costs(
+            [r for _, r, _ in batch], run.backend, packer.device
+        )
+        lockstep_apply(batch, totals)
+    return lockstep_finish(advanced)
+
+
 class _GARun:
     """One problem's GA state, advanced generation-wise by the phase helpers
-    of `GeneticPacker`."""
+    of `GeneticPacker` (its own `pack()` loop, or the portfolio's island
+    loop through the ``lockstep_*`` phases)."""
 
     __slots__ = (
         "prob", "rng", "t0", "backend", "batched", "hetero",
         "inv_pen", "modes0", "kt", "pop", "costs", "fits", "ovfs",
         "W", "H", "Km", "best", "best_cost", "best_sel", "trace",
-        "stale", "gen",
+        "stale", "gen", "done",
     )
+
+    def __init__(self):
+        self.done = False

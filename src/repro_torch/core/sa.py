@@ -291,6 +291,30 @@ class SimulatedAnnealingPacker:
             uphill=None,
         )
 
+    def _scalar_migrate(self, st: _ScalarRun, sol: Solution) -> bool:
+        """Portfolio barrier hook: the migrant replaces the incumbent iff it
+        strictly beats its penalized cost.  A finished run is never touched
+        and ``stale`` is never reset, so migration cannot revive a frozen
+        island (it stops drawing RNG exactly where a standalone run would).
+        """
+        if st.done or st.stale >= self.patience:
+            return False
+        lam = self.inventory_penalty
+        cost = sol.cost()
+        ovf = sol.inventory_overflow() if st.hetero else 0
+        if cost + lam * ovf >= st.cost + lam * st.ovf:
+            return False
+        st.sol = sol.copy()
+        st.cost = cost
+        st.ovf = ovf
+        # fold the migrant into the patience-reference best (no trace entry,
+        # no stale reset): otherwise the next improved-check would treat the
+        # migrant as this island's own discovery and revive its patience —
+        # the same suppression `_block_migrate` does via best_pcosts
+        if cost + lam * ovf < st.best_cost + lam * st.best_ovf:
+            st.best, st.best_cost, st.best_ovf = st.sol.copy(), cost, ovf
+        return True
+
     # ----------------------------------------------- single-chain delta engine
     def _pack_single_chain(self, prob: PackingProblem, init, backend):
         """One chain, in-place moves + undo, fused delta-cost evaluation.
@@ -486,6 +510,28 @@ class SimulatedAnnealingPacker:
             uphill=(st.uphill_prop, st.uphill_acc),
         )
 
+    def _single_migrate(self, st: _SingleChainRun, sol: Solution) -> bool:
+        """Portfolio barrier hook for the single-chain engine; same contract
+        as `_scalar_migrate` (strictly-better only, frozen never revived)."""
+        if st.done or st.stale >= self.patience:
+            return False
+        lam = self.inventory_penalty
+        cost = int(sol.cost())
+        ovf = int(sol.inventory_overflow()) if st.hetero else 0
+        if cost + lam * ovf >= st.cost + lam * st.ovf:
+            return False
+        st.sol = sol.copy()
+        st.cost = cost
+        st.sol.fill_geometry(st.chain_w[0], st.chain_h[0])
+        if st.hetero:
+            st.sol.fill_kinds(st.chain_k[0])
+            st.used = st.sol.used_primitives()
+            st.ovf = int(st.prob.overflow_units(st.used))
+        # patience-reference best absorbs the migrant (see _scalar_migrate)
+        if cost + lam * st.ovf < st.best_cost + lam * st.best_ovf:
+            st.best, st.best_cost, st.best_ovf = st.sol.copy(), cost, st.ovf
+        return True
+
     # -------------------------------------------- vectorized multi-chain engine
     def _chain_t0s(self) -> np.ndarray:
         """Lundy-Mees T0 ladder: chain 0 at the configured T0 (single-chain
@@ -554,8 +600,12 @@ class SimulatedAnnealingPacker:
         rngs: Sequence[np.random.Generator],
         inits: Sequence[Sequence[Solution]],
         backend: str,
+        n_slots: int | None = None,
     ) -> _BlockState:
-        """Encode a fleet's chain state (no RNG draws beyond chain init)."""
+        """Encode a fleet's chain state (no RNG draws beyond chain init);
+        ``n_slots`` widens the bin-slot envelope (the portfolio passes
+        ``prob.n`` so any migrant fits — envelope padding never affects
+        trajectories)."""
         st = _BlockState()
         n_probs = st.n_probs = len(probs)
         n_chains = self.n_chains
@@ -591,7 +641,7 @@ class SimulatedAnnealingPacker:
                 for c in range(len(mine), n_chains)
             ]
             sols.extend(mine)
-        st.items, st.counts = encode_chain_items(sols, st.cap_max)
+        st.items, st.counts = encode_chain_items(sols, st.cap_max, n_slots=n_slots)
         st.bw, st.bh, st.live = encode_chain_geometry(sols, st.items.shape[1])
         st.costs = np.asarray([s.cost() for s in sols], dtype=np.int64)
 
@@ -654,28 +704,31 @@ class SimulatedAnnealingPacker:
         `_block_gen` and answering every step request with one delta-cost
         call on ``self.device``.  All state lives in ``st``, so a barriered
         run is bit-identical to an uninterrupted one."""
-        from ..kernels.binpack_sa_step.ops import sa_step_deltas
-
-        hetero = st.hetero
         gen = self._block_gen(st, it_limit)
         req = next(gen, None)
         while req is not None:
-            old_w, old_h, new_w, new_h, old_k, new_k = req
-            if hetero:
-                d_e = sa_step_deltas(
-                    old_w, old_h, new_w, new_h, backend=st.backend,
-                    old_k=old_k, new_k=new_k, kind_tables=st.kt,
-                    device=self.device,
-                )
-            else:
-                d_e = sa_step_deltas(
-                    old_w, old_h, new_w, new_h, modes=st.modes0,
-                    backend=st.backend, device=self.device,
-                )
             try:
-                req = gen.send(d_e)
+                req = gen.send(self._block_eval(st, req))
             except StopIteration:
                 break
+
+    def _block_eval(self, st: _BlockState, req: tuple) -> np.ndarray:
+        """Answer one `_block_gen` step request with one delta-cost call on
+        ``self.device`` (the portfolio's fused barrier answers the same
+        requests through ``binpack_portfolio_step``)."""
+        from ..kernels.binpack_sa_step.ops import sa_step_deltas
+
+        old_w, old_h, new_w, new_h, old_k, new_k = req
+        if old_k is not None:
+            return sa_step_deltas(
+                old_w, old_h, new_w, new_h, backend=st.backend,
+                old_k=old_k, new_k=new_k, kind_tables=st.kt,
+                device=self.device,
+            )
+        return sa_step_deltas(
+            old_w, old_h, new_w, new_h, modes=st.modes0,
+            backend=st.backend, device=self.device,
+        )
 
     def _block_gen(self, st: _BlockState, it_limit: int | None = None):
         """The fleet hot loop as a *step-request generator*.
@@ -996,6 +1049,83 @@ class SimulatedAnnealingPacker:
                 wall=wall,
             ))
         return outs
+
+    # ------------------------------------------------- portfolio barrier hooks
+    def _block_frozen(self, st: _BlockState, j: int) -> bool:
+        """True when fleet problem ``j`` has every chain past patience."""
+        lo = j * self.n_chains
+        return not (st.stale[lo : lo + self.n_chains] < self.patience).any()
+
+    def _block_migrate(self, st: _BlockState, j: int, sol: Solution) -> bool:
+        """Portfolio barrier hook: land a migrant into fleet problem ``j``'s
+        worst chain slot iff it strictly beats that slot's penalized cost.
+        A frozen problem is never touched — and patience counters are never
+        reset — so migration cannot revive a problem that already stopped
+        drawing RNG (its trajectory stays exactly its standalone one)."""
+        if st.done or self._block_frozen(st, j):
+            return False
+        lam = self.inventory_penalty
+        n_chains = self.n_chains
+        lo = j * n_chains
+        r = lo + int(st.pcosts[lo : lo + n_chains].argmax())
+        cost = int(sol.cost())
+        ovf = int(sol.inventory_overflow()) if st.hetero else 0
+        if cost + lam * ovf >= st.pcosts[r]:
+            return False
+        nb = st.items.shape[1]
+        if len(sol.bins) > nb:  # cannot encode into this fleet's envelope
+            return False
+        items_row, counts_row = encode_chain_items([sol], st.cap_max, n_slots=nb)
+        st.items[r] = items_row[0]
+        st.counts[r] = counts_row[0]
+        st.live[r] = int((counts_row[0] > 0).sum())
+        sol.fill_geometry(st.bw[r], st.bh[r])
+        st.costs[r] = cost
+        if st.hetero:
+            sol.fill_kinds(st.bk[r])
+            st.UK[r] = sol.used_primitives()
+            st.pcosts[r] = cost + lam * st.batch.overflow_rows(
+                st.UK[r : r + 1], st.pi[r : r + 1]
+            )[0]
+        else:
+            st.pcosts[r] = cost  # pcosts aliases costs on single-kind fleets
+        st.best_pcosts[r] = min(st.best_pcosts[r], st.pcosts[r])
+        return True
+
+    # Racing (``pack_portfolio(auto=True)``) treats the iteration budget as a
+    # portfolio-level ledger: a surviving island's budget is *extended*
+    # barrier by barrier, and an eliminated island simply stops advancing.
+    # Extension only lifts the budget ceiling (never touches patience, RNG,
+    # or the wall cap); elimination reuses the freeze mechanism — a frozen
+    # problem draws no RNG, so fleet siblings' streams are untouched.
+
+    def _block_extend(self, st: _BlockState, it_limit: int) -> None:
+        """Raise the fleet's iteration budget to at least ``it_limit``,
+        reviving a state that stopped *on budget* (never one frozen on
+        patience or cut by the wall cap)."""
+        if st.done and not st.frozen and st.it >= self.max_iterations:
+            st.done = False
+        self.max_iterations = max(self.max_iterations, int(it_limit))
+
+    def _block_eliminate(self, st: _BlockState, j: int) -> None:
+        """Stop fleet problem ``j`` forever by pushing every chain past
+        patience: the loop-top activity mask skips frozen problems before
+        any RNG draw, so siblings' streams are as if ``j`` had stopped."""
+        lo = j * self.n_chains
+        st.stale[lo : lo + self.n_chains] = self.patience
+
+    def _loop_extend(self, st, it_limit: int) -> None:
+        """Raise a scalar/single-chain state's iteration budget to
+        ``it_limit``, reviving it only if its budget alone stopped it (never
+        a patience or wall-cap stop)."""
+        if st.done and st.stale < self.patience and st.it >= self.max_iterations:
+            st.done = False
+        self.max_iterations = max(self.max_iterations, int(it_limit))
+
+    def _loop_eliminate(self, st) -> None:
+        """Stop a scalar/single-chain state forever (`_ScalarRun` and
+        `_SingleChainRun` both gate their loops on ``st.done``)."""
+        st.done = True
 
     # ------------------------------------------------------------------ result
     def _result(self, best, best_cost, wall, trace, iterations, backend, uphill):

@@ -1,15 +1,19 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: `binpack_fitness` (K1 / K2, GA fitness) and `binpack_sa_step`
-(K3 / K4, SA delta cost).  `build` compiles ``csrc/`` at first use."""
+version: `binpack_fitness` (K1 / K2, GA fitness), `binpack_sa_step`
+(K3 / K4, SA delta cost) and `binpack_portfolio_step` (K5, both at once
+for the island portfolio's fused barriers).  `build` compiles ``csrc/`` at
+first use."""
 
 
 def kernel_wrappers() -> tuple:
-    """The four CUDA kernel wrappers, each counting its launches."""
+    """The CUDA kernel wrappers, each counting its launches."""
     from .binpack_fitness import binpack_fitness_cuda, binpack_fitness_kinds_cuda
+    from .binpack_portfolio_step import portfolio_step_cuda, portfolio_step_kinds_cuda
     from .binpack_sa_step import sa_step_deltas_cuda, sa_step_deltas_kinds_cuda
 
     return (binpack_fitness_cuda, binpack_fitness_kinds_cuda,
-            sa_step_deltas_cuda, sa_step_deltas_kinds_cuda)
+            sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
+            portfolio_step_cuda, portfolio_step_kinds_cuda)
 
 
 def launch_counts() -> dict[str, int]:

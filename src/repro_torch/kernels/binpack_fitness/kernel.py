@@ -14,7 +14,9 @@ import ctypes
 
 import torch
 
-from ..build import check_planes, kind_tables_struct, launch, load, modes_struct
+from ..build import (
+    check_planes, count_launch, kind_tables_struct, launch, load, modes_struct,
+)
 from .ref import binpack_fitness_kinds_ref, binpack_fitness_ref
 
 
@@ -36,7 +38,7 @@ def binpack_fitness_cuda(
         widths.data_ptr(), heights.data_ptr(), out.data_ptr(), p, nb,
         ctypes.byref(tables),
     )
-    binpack_fitness_cuda.launches += 1
+    count_launch(binpack_fitness_cuda)
     return out
 
 
@@ -62,7 +64,7 @@ def binpack_fitness_kinds_cuda(
         widths.data_ptr(), heights.data_ptr(), kinds.data_ptr(), out.data_ptr(),
         p, nb, ctypes.byref(tables),
     )
-    binpack_fitness_kinds_cuda.launches += 1
+    count_launch(binpack_fitness_kinds_cuda)
     return out
 
 

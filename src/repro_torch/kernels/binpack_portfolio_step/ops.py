@@ -1,0 +1,105 @@
+"""Dispatcher for the fused portfolio step: GA fitness + SA deltas at once.
+
+``portfolio_step`` answers one fused barrier cycle of the island portfolio
+(`core.portfolio._advance_fused`): a stacked GA generation's population
+fitness (the ``binpack_fitness`` contract) AND one SA fleet step's
+touched-bin delta costs (the ``binpack_sa_step`` contract).  Backends:
+
+* ``"python"`` — host numpy for both halves.
+* ``"torch"`` — the plain PyTorch version (``ref.py``) on ``device``.
+* ``"cuda"`` — the hand-written kernel K5 (``kernel.py``), one launch for
+  both halves; on a CPU device its wrappers take the plain version.
+
+The engines' state is host numpy, so the torch and cuda backends copy both
+halves' planes to ``device`` and the results back.  Every backend is exact
+integer arithmetic: the totals equal ``binpack_fitness.ops.population_costs``
+and the deltas ``binpack_sa_step.ops.sa_step_deltas`` on the same inputs,
+so a fused barrier cannot change any engine trajectory.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..binpack_sa_step.ops import _bin_costs_kinds_numpy, _bin_costs_numpy
+from .kernel import portfolio_step_cuda, portfolio_step_kinds_cuda
+from .ref import portfolio_step_kinds_ref, portfolio_step_ref
+
+BACKENDS = ("python", "torch", "cuda")
+
+
+def _planes(arrays, device, width) -> list[torch.Tensor]:
+    return [
+        torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.int32).reshape(-1, width)
+        ).to(device)
+        for a in arrays
+    ]
+
+
+def portfolio_step(
+    W,
+    H,
+    old_w,
+    old_h,
+    new_w,
+    new_h,
+    modes=None,
+    backend: str = "cuda",
+    kinds=None,
+    old_k=None,
+    new_k=None,
+    kind_tables=None,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """One fused call: ``(W, H)`` population geometry (any leading shape,
+    bins on the last axis) plus ``(R, T)`` touched-bin SA step geometry ->
+    ``(totals, deltas)``.
+
+    ``totals`` is float64 with ``W``'s leading shape (exact integer values,
+    as the GA's batched costs); ``deltas`` is ``(R,)`` int64 (as
+    ``sa_step_deltas``).  Heterogeneous problems pass the kind lanes of
+    BOTH halves (``kinds`` for the populations, ``old_k`` / ``new_k`` for
+    the touched slots) plus the shared ``kind_tables`` — all-or-none, since
+    a portfolio's islands share one problem.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
+    hetero = kind_tables is not None
+    sides = (kinds is not None, old_k is not None, new_k is not None)
+    if hetero != all(sides) or (not hetero and any(sides)):
+        raise ValueError(
+            "kinds/old_k/new_k/kind_tables must be passed together (the "
+            "portfolio's islands share one problem) or not at all"
+        )
+    if modes is None:
+        from ...core.problem import BRAM18_MODES
+
+        modes = BRAM18_MODES
+    if backend == "python":
+        if hetero:
+            per_bin = _bin_costs_kinds_numpy(W, H, kinds, kind_tables)
+            new_c = _bin_costs_kinds_numpy(new_w, new_h, new_k, kind_tables)
+            old_c = _bin_costs_kinds_numpy(old_w, old_h, old_k, kind_tables)
+        else:
+            per_bin = _bin_costs_numpy(W, H, modes)
+            new_c = _bin_costs_numpy(new_w, new_h, modes)
+            old_c = _bin_costs_numpy(old_w, old_h, modes)
+        totals = per_bin.sum(axis=-1).astype(np.float64)
+        return totals, np.sum(new_c - old_c, axis=-1)
+    lead, nb = tuple(np.shape(W)[:-1]), np.shape(W)[-1]
+    step_lead, t = tuple(np.shape(old_w)[:-1]), np.shape(old_w)[-1]
+    if hetero:
+        pop = _planes((W, H, kinds), device, nb)
+        step = _planes((old_w, old_h, old_k, new_w, new_h, new_k), device, t)
+        fn = portfolio_step_kinds_cuda if backend == "cuda" else portfolio_step_kinds_ref
+        totals, deltas = fn(*pop, *step, kind_tables)
+    else:
+        pop = _planes((W, H), device, nb)
+        step = _planes((old_w, old_h, new_w, new_h), device, t)
+        fn = portfolio_step_cuda if backend == "cuda" else portfolio_step_ref
+        totals, deltas = fn(*pop, *step, modes)
+    return (
+        totals.cpu().numpy().astype(np.float64).reshape(lead),
+        deltas.cpu().numpy().reshape(step_lead),
+    )

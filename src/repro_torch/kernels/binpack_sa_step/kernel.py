@@ -14,7 +14,9 @@ import ctypes
 
 import torch
 
-from ..build import check_planes, kind_tables_struct, launch, load, modes_struct
+from ..build import (
+    check_planes, count_launch, kind_tables_struct, launch, load, modes_struct,
+)
 from .ref import sa_step_deltas_kinds_ref, sa_step_deltas_ref
 
 
@@ -34,7 +36,7 @@ def sa_step_deltas_cuda(old_w, old_h, new_w, new_h, modes) -> torch.Tensor:
         old_w.data_ptr(), old_h.data_ptr(), new_w.data_ptr(), new_h.data_ptr(),
         out.data_ptr(), c, t, ctypes.byref(tables),
     )
-    sa_step_deltas_cuda.launches += 1
+    count_launch(sa_step_deltas_cuda)
     return out
 
 
@@ -65,7 +67,7 @@ def sa_step_deltas_kinds_cuda(
         new_w.data_ptr(), new_h.data_ptr(), new_k.data_ptr(),
         out.data_ptr(), c, t, ctypes.byref(tables),
     )
-    sa_step_deltas_kinds_cuda.launches += 1
+    count_launch(sa_step_deltas_kinds_cuda)
     return out
 
 

@@ -16,11 +16,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("binpack_fitness", "binpack_sa_step")
+SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,11 +105,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
 
 
+# Serialises `build` and `load`: the island portfolio's host threads may
+# ask for the same library at once, and one nvcc must write it, not two.
+_BUILD_LOCK = threading.RLock()
+
+
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every named source that has no up-to-date library, one
     ``nvcc`` process per source, all started together.  Returns each
     compiled source's ``ptxas -v`` report (register and spill counts);
-    raises with the compiler's output if any build fails."""
+    raises with the compiler's output if any build fails.  Safe to call
+    from several threads: a library being built is built once."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
@@ -116,7 +128,9 @@ def build(names=SOURCES) -> dict[str, str]:
     nvcc = _nvcc()
     procs = {}
     for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        tmp = library_path(name).with_suffix(
+            f".{os.getpid()}-{threading.get_ident()}.tmp"
+        )
         cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -147,6 +161,12 @@ _SIGNATURES = {
         "sa_step_deltas_launch": [_P, _P, _P, _P, _P, _I, _I, _T, _P],
         "sa_step_deltas_kinds_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _T, _P],
     },
+    "binpack_portfolio_step": {
+        "portfolio_step_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _T, _P],
+        "portfolio_step_kinds_launch": [
+            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _T, _P,
+        ],
+    },
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -154,9 +174,15 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
     needed; every entry point gets explicit ``argtypes`` (``c_void_p`` for
-    pointers and the stream, so no pointer is cut to 32 bits)."""
+    pointers and the stream, so no pointer is cut to 32 bits).  Safe to
+    call from several threads: each library is built and loaded once."""
     lib = _LIBS.get(name)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, argtypes in _SIGNATURES[name].items():
@@ -170,7 +196,7 @@ def load(name: str) -> ctypes.CDLL:
                 f"in C but {ctypes.sizeof(KindTables)} in ctypes"
             )
         _LIBS[name] = lib
-    return lib
+        return lib
 
 
 def check_planes(what: str, planes):
@@ -200,6 +226,17 @@ def check_planes(what: str, planes):
     if any(s > _I32_MAX for s in first.shape):
         raise ValueError(f"{what}: dimension exceeds int32")
     return first.device
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  The island portfolio launches from
+    two host threads at once, so the increment holds a lock: no launch is
+    lost from the count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch(device, fn, *args) -> None:

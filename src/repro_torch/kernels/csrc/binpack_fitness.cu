@@ -18,9 +18,10 @@
 // row, a strided loop over the row's slots (neighbouring threads read
 // neighbouring words, so loads coalesce), a warp-shuffle plus shared-memory
 // sum, no padding of P or NB (the loop bound masks the ragged edge).
+// The row body is `fitness_row` in binpack_rows.cuh, shared with K5.
 #include <cuda_runtime.h>
 
-#include "kind_tables.cuh"
+#include "binpack_rows.cuh"
 
 namespace {
 
@@ -33,27 +34,8 @@ fitness_rows_kernel(const int32_t* __restrict__ widths,
                     const int32_t* __restrict__ kinds,
                     long long* __restrict__ totals, int nb,
                     const KindTables tables) {
-  const long long base = static_cast<long long>(blockIdx.x) * nb;
-  long long acc = 0;
-  for (int j = threadIdx.x; j < nb; j += kThreads) {
-    const int32_t k = KINDS ? kinds[base + j] : 0;
-    acc += kind_cost(widths[base + j], heights[base + j], k, tables);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  __shared__ long long warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    acc = lane < kThreads / 32 ? warp_sums[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    }
-    if (lane == 0) totals[blockIdx.x] = acc;
-  }
+  fitness_row<KINDS, kThreads>(widths, heights, kinds, totals, blockIdx.x, nb,
+                               tables);
 }
 
 }  // namespace

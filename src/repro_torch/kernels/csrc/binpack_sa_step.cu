@@ -13,9 +13,10 @@
 // the host<->device copies around it, not by the kernel, so the design is
 // the simplest exact one: one thread per chain row looping over its T slots
 // with a 64-bit accumulator, the ragged edge masked by the row bound.
+// The row body is `sa_delta_row` in binpack_rows.cuh, shared with K5.
 #include <cuda_runtime.h>
 
-#include "kind_tables.cuh"
+#include "binpack_rows.cuh"
 
 namespace {
 
@@ -31,18 +32,10 @@ sa_step_rows_kernel(const int32_t* __restrict__ old_w,
                     const int32_t* __restrict__ new_k,
                     long long* __restrict__ deltas, int c, int t,
                     const KindTables tables) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
+  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= c) return;
-  const long long base = static_cast<long long>(row) * t;
-  long long d = 0;
-  for (int j = 0; j < t; ++j) {
-    const long long i = base + j;
-    const int32_t ko = KINDS ? old_k[i] : 0;
-    const int32_t kn = KINDS ? new_k[i] : 0;
-    d += kind_cost(new_w[i], new_h[i], kn, tables) -
-         kind_cost(old_w[i], old_h[i], ko, tables);
-  }
-  deltas[row] = d;
+  sa_delta_row<KINDS>(old_w, old_h, old_k, new_w, new_h, new_k, deltas, row, t,
+                      tables);
 }
 
 }  // namespace

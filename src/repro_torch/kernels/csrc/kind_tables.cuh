@@ -1,6 +1,6 @@
-// Shared cost primitive of the bin-packing kernels (binpack_fitness.cu and
-// binpack_sa_step.cu), so the fitness and SA-delta kernels can never drift
-// apart arithmetically -- the role `kind_cost_block` plays for the Pallas
+// Shared cost primitive of the bin-packing kernels (every source in this
+// directory, through binpack_rows.cuh), so the fitness, SA-delta and fused
+// portfolio kernels can never drift apart arithmetically -- the role `kind_cost_block` plays for the Pallas
 // kernels in src/repro/kernels/binpack_fitness/kernel.py.
 //
 //   cost(w, h, k) = weight[k] * min_m ceil(w / mode_w[k][m]) * ceil(h / mode_d[k][m])

@@ -97,9 +97,12 @@ def test_warm_starts_match_reference():
 
 
 def test_portfolio_and_legacy_wait_for_later_slices():
+    """The portfolio is ported; its checkpoints and sharded fleets, and the
+    legacy backend, wait for later slices."""
     prob = port.get_problem("CNV-W1A1")
-    with pytest.raises(NotImplementedError, match="portfolio"):
-        port.pack(prob, "portfolio", device="cpu")
+    assert "portfolio" in port.ALGORITHMS
+    for later in (dict(checkpoint_dir="ckpt"), dict(n_shards=2)):
+        with pytest.raises(NotImplementedError, match="portfolio"):
+            port.pack(prob, "portfolio", device="cpu", **later)
     with pytest.raises(ValueError, match="legacy"):
         port.pack(prob, "ga-nfd", backend="legacy", device="cpu")
-    assert "portfolio" not in port.ALGORITHMS

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1-K4 on a card, exactly equal to their plain
-PyTorch versions on the same card tensors.
+"""The port's CUDA kernels K1-K5 on a card, exactly equal to their plain
+PyTorch versions on the same card tensors, and the island portfolio's
+fused barriers through K5 equal to the host backend.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -19,6 +20,12 @@ from repro_torch.kernels.binpack_fitness import (
     binpack_fitness_kinds_cuda,
     binpack_fitness_kinds_ref,
     binpack_fitness_ref,
+)
+from repro_torch.kernels.binpack_portfolio_step import (
+    portfolio_step_cuda,
+    portfolio_step_kinds_cuda,
+    portfolio_step_kinds_ref,
+    portfolio_step_ref,
 )
 from repro_torch.kernels.binpack_sa_step import (
     sa_step_deltas_cuda,
@@ -62,4 +69,95 @@ def test_kernels_match_plain_versions_on_card():
         )
         args = (old[0], old[1], old[2], new[0], new[1], new[2], U50_TABLES)
         assert torch.equal(sa_step_deltas_kinds_cuda(*args), sa_step_deltas_kinds_ref(*args))
-    assert all(n == 3 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[f.__name__] == 3 for f in (
+        binpack_fitness_cuda, binpack_fitness_kinds_cuda,
+        sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
+    ))
+
+
+@pytest.mark.gpu
+def test_load_from_threads_into_empty_build_dir(tmp_path, monkeypatch):
+    """Several host threads loading every kernel library at once into an
+    empty build directory: each source is built once, nothing is left
+    half-written, and the loaded kernels launch and agree with the plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+
+    from repro_torch.kernels import build as build_mod
+
+    monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build_mod, "_LIBS", {})
+    n_threads = 6
+    got = [None] * n_threads
+    barrier = threading.Barrier(n_threads)
+
+    def ask(i):
+        barrier.wait()
+        got[i] = {name: build_mod.load(name) for name in build_mod.SOURCES}
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for name in build_mod.SOURCES:
+        assert len({id(g[name]) for g in got}) == 1
+    built = sorted(p.name for p in (tmp_path / "kernels").iterdir())
+    assert built == sorted(build_mod.library_path(n).name for n in build_mod.SOURCES)
+    w, h, k = _planes(np.random.default_rng(5), (3, 40), torch.device("cuda"))
+    assert torch.equal(binpack_fitness_cuda(w, h, BRAM18_MODES),
+                       binpack_fitness_ref(w, h, BRAM18_MODES).sum(1))
+
+
+@pytest.mark.gpu
+def test_portfolio_step_matches_plain_and_separate_kernels_on_card():
+    """K5 built and launched once per case: both halves equal the plain
+    version and a K1/K2 launch plus a K3/K4 launch on the same tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    cases = [(150, 2253, 8, 4), (1, 1, 1, 1), (0, 7, 300, 6), (7, 300, 0, 4),
+             (513, 129, 1000, 2)]
+    kernels.reset_launch_counts()
+    for rows, nb, c, t in cases:
+        w, h, k = _planes(rng, (rows, nb), dev)
+        old = _planes(rng, (c, t), dev)
+        new = _planes(rng, (c, t), dev)
+        step = (old[0], old[1], new[0], new[1])
+        got = portfolio_step_cuda(w, h, *step, BRAM18_MODES)
+        assert all(map(torch.equal, got, portfolio_step_ref(w, h, *step, BRAM18_MODES)))
+        assert torch.equal(got[0], binpack_fitness_cuda(w, h, BRAM18_MODES))
+        assert torch.equal(got[1], sa_step_deltas_cuda(*step, BRAM18_MODES))
+        step = (old[0], old[1], old[2], new[0], new[1], new[2])
+        got = portfolio_step_kinds_cuda(w, h, k, *step, U50_TABLES)
+        assert all(map(torch.equal, got,
+                       portfolio_step_kinds_ref(w, h, k, *step, U50_TABLES)))
+        assert torch.equal(got[0], binpack_fitness_kinds_cuda(w, h, k, U50_TABLES))
+        assert torch.equal(got[1], sa_step_deltas_kinds_cuda(*step, U50_TABLES))
+    counts = kernels.launch_counts()
+    assert counts["portfolio_step_cuda"] == counts["portfolio_step_kinds_cuda"] == len(cases)
+
+
+@pytest.mark.gpu
+def test_fused_portfolio_on_card_matches_host_backend():
+    """A fused portfolio on the card launches K5 and gives the host
+    backend's result bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.core as c
+
+    prob = c.get_problem("CNV-W1A1", device="U50")
+    kw = dict(seed=0, n_islands=4, sa_chains=4, migration_every=32,
+              max_generations=6, max_iterations=200, max_seconds=1e9, patience=10**9)
+    kernels.reset_launch_counts()
+    a = c.pack(prob, "portfolio", backend="cuda", **kw)
+    assert a.params["fused"] and kernels.launch_counts()["portfolio_step_kinds_cuda"] > 0
+    b = c.pack(prob, "portfolio", backend="python", **kw)
+    assert a.cost == b.cost and a.iterations == b.iterations
+    assert a.solution.state_dict() == b.solution.state_dict()
+    assert [x for _, x in a.trace] == [x for _, x in b.trace]

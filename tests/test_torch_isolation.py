@@ -58,6 +58,32 @@ def test_cpu_pack_loads_neither_jax_nor_reference():
     assert out.stdout.strip() == "ok"
 
 
+def test_cpu_portfolio_loads_neither_jax_nor_reference():
+    """The island portfolio (fused barriers on the torch backend, the
+    numpy backend, racing) imports nothing of JAX or the reference."""
+    code = (
+        "import sys\n"
+        "import repro_torch.core as c\n"
+        "p = c.get_problem('CNV-W1A1', device='ZU7EV')\n"
+        "kw = dict(device='cpu', n_islands=4, sa_chains=2, migration_every=16,\n"
+        "          max_generations=3, max_iterations=40, max_seconds=1e9)\n"
+        "r = c.pack(p, 'portfolio', **kw)\n"
+        "assert r.params['fused'], r.params\n"
+        "r.solution.validate()\n"
+        "r = c.pack(p, 'portfolio', backend='python', auto=True, **kw)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_default_device_is_cuda_and_never_falls_back():
     import repro_torch.core as c
     from repro_torch.device import resolve_backend, resolve_device
@@ -70,6 +96,8 @@ def test_default_device_is_cuda_and_never_falls_back():
             lambda: c.pack(prob),
             lambda: c.pack(prob, "nfd"),
             lambda: c.make_packer("sa-s"),
+            lambda: c.pack(prob, "portfolio"),
+            lambda: c.pack_portfolio(prob),
             lambda: resolve_device("cuda:0"),
         ):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -88,7 +116,8 @@ def test_kernels_build_nothing_at_import():
     """Importing the port never touches nvcc or the build directory."""
     code = (
         "import repro_torch.core, repro_torch.kernels.binpack_fitness, "
-        "repro_torch.kernels.binpack_sa_step\n"
+        "repro_torch.kernels.binpack_sa_step, "
+        "repro_torch.kernels.binpack_portfolio_step\n"
         "from repro_torch.kernels import build\n"
         "assert build._LIBS == {}\n"
         "print('ok')\n"

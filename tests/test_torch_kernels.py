@@ -31,6 +31,10 @@ from repro_torch.kernels.binpack_fitness import (
     binpack_fitness_ref,
     population_costs,
 )
+from repro_torch.kernels.binpack_portfolio_step import (
+    portfolio_step_cuda,
+    portfolio_step_kinds_cuda,
+)
 from repro_torch.kernels.binpack_sa_step import (
     sa_step_deltas_cuda,
     sa_step_deltas_kinds_cuda,
@@ -183,10 +187,15 @@ def test_cpu_wrappers_take_plain_versions_without_counting():
     binpack_fitness_kinds_cuda(_t(w), _t(h), _t(k), U50_TABLES)
     sa_step_deltas_cuda(_t(w), _t(h), _t(w), _t(h), BRAM18_MODES)
     sa_step_deltas_kinds_cuda(_t(w), _t(h), _t(k), _t(w), _t(h), _t(k), U50_TABLES)
+    portfolio_step_cuda(_t(w), _t(h), _t(w), _t(h), _t(w), _t(h), BRAM18_MODES)
+    portfolio_step_kinds_cuda(_t(w), _t(h), _t(k), _t(w), _t(h), _t(k),
+                              _t(w), _t(h), _t(k), U50_TABLES)
     assert kernels.launch_counts() == {
         "binpack_fitness_cuda": 0,
         "binpack_fitness_kinds_cuda": 0,
         "sa_step_deltas_cuda": 0,
         "sa_step_deltas_kinds_cuda": 0,
+        "portfolio_step_cuda": 0,
+        "portfolio_step_kinds_cuda": 0,
     }
 
