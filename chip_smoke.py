@@ -25,7 +25,21 @@ no result line):
    against host numpy, and one ``auto=True`` race on RN152-W1A2; results,
    barriers, migrations, strides (and the race's ledger) bit-identical,
    launch counts read per run;
-6. timing: each kernel per launch (CUDA events around a CUDA graph of
+6. the memory planner's main path at full width: hymba-1.5b's 30
+   parameter tensors (6.57 GB float32, seeded ``torch.randn`` on the card),
+   ``plan_packing(..., split_stacked=True)`` through host numpy and through
+   the kernels (the GA's fitness on K1), identical and stopped on
+   patience, and equal to the reference's plan (609 tensors in 275 banks,
+   cost 58854, 214 generations); the ``PackedParameterStore`` built on the
+   card, ``unpack()`` and every packed view bit-equal to their sources; K6
+   launched once per bank, each output within float32 rounding of the
+   plain version and of a per-entry matvec; K6 against its plain version
+   in seeded cases (the reference test's 20 shapes, ragged N, out-of-range
+   segments, the largest bank); K6 timed at the largest bank, the most
+   common one and the reference benchmark's (2048, 1024) x 4, beside its
+   plain version and one cuBLAS GEMM + gather, then a whole pass over the
+   store, and one pass under ``torch.profiler``;
+7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
    K5 also the separate K1 + K3 launches it replaces); then each engine's
@@ -33,7 +47,7 @@ no result line):
    in turns, split per step into host time and ops-layer time; the
    portfolio's wall time per engine group and per barrier, a second pair
    of runs in the other order;
-7. one cuda loop of each engine, and one cuda portfolio run on each
+8. one cuda loop of each engine, and one cuda portfolio run on each
    problem, under ``torch.profiler``: the device's busy share and its time
    in kernels and in copies.
 
@@ -96,10 +110,61 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/binpack_portfolio_step.cu",
         "src/repro/kernels/binpack_portfolio_step/kernel.py:41",
     ),
+    "packed_gather_cuda": (
+        "src/repro_torch/kernels/csrc/packed_gather.cu",
+        "src/repro/kernels/packed_gather/kernel.py:37",
+    ),
 }
 # the kernel each main path must launch (the portfolio's odd cycles also
-# launch the fitness and SA-delta kernels)
+# launch the fitness and SA-delta kernels; the memory planner's GA launches
+# the fitness kernel)
 PORTFOLIO_KERNELS = ("portfolio_step_cuda", "portfolio_step_kinds_cuda")
+GATHER = "packed_gather_cuda"  # the memory planner's own kernel
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+# The memory planner's main path: hymba-1.5b at its published widths, the
+# (path, shape) of every parameter as the reference's
+# `param_specs(get_config("hymba-1.5b"))` gives them, all float32 (6.57 GB;
+# src/repro/configs/hymba_1_5b.py).  A literal, because the card's machine
+# has no JAX; tests/test_torch_memory.py holds it equal to param_specs.
+HYMBA_1_5B_SHAPES = (
+    ("embed", (32128, 1600)),
+    ("final_norm/scale", (1600,)),
+    ("layers/attn/k/kernel", (32, 1600, 320)),
+    ("layers/attn/o/kernel", (32, 1600, 1600)),
+    ("layers/attn/q/kernel", (32, 1600, 1600)),
+    ("layers/attn/v/kernel", (32, 1600, 320)),
+    ("layers/branch_a", (32, 1600)),
+    ("layers/branch_s", (32, 1600)),
+    ("layers/mlp/down/kernel", (32, 5504, 1600)),
+    ("layers/mlp/gate/kernel", (32, 1600, 5504)),
+    ("layers/mlp/up/kernel", (32, 1600, 5504)),
+    ("layers/norm1/scale", (32, 1600)),
+    ("layers/norm2/scale", (32, 1600)),
+    ("layers/ssm/a_log", (32, 50)),
+    ("layers/ssm/b_proj/kernel", (32, 1600, 16)),
+    ("layers/ssm/c_proj/kernel", (32, 1600, 16)),
+    ("layers/ssm/conv_b", (32, 4, 16)),
+    ("layers/ssm/conv_b_bias", (32, 16)),
+    ("layers/ssm/conv_c", (32, 4, 16)),
+    ("layers/ssm/conv_c_bias", (32, 16)),
+    ("layers/ssm/conv_x", (32, 4, 3200)),
+    ("layers/ssm/conv_x_bias", (32, 3200)),
+    ("layers/ssm/d_skip", (32, 50)),
+    ("layers/ssm/dt_bias", (32, 50)),
+    ("layers/ssm/dt_proj/kernel", (32, 1600, 50)),
+    ("layers/ssm/norm_scale", (32, 3200)),
+    ("layers/ssm/out_proj/kernel", (32, 3200, 1600)),
+    ("layers/ssm/x_proj/kernel", (32, 1600, 3200)),
+    ("layers/ssm/z_proj/kernel", (32, 1600, 3200)),
+    ("lm_head/kernel", (1600, 32128)),
+)
+MEMORY_SEED = 0
+# the planner's only budget is the wall clock; parity needs a patience stop
+MEMORY_MAX_SECONDS = 600.0
+# what the reference's plan_packing gives on this tree (split per layer,
+# seed 0); tests/test_torch_memory.py holds these equal to the reference
+HYMBA_REFERENCE_PLAN = dict(packed=609, banks=275, cost=58854, generations=214)
 
 
 def nvidia_smi() -> str:
@@ -199,8 +264,9 @@ def check_kernels(inputs, device) -> dict:
         return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
                 for a in arrays]
 
-    err = {name: 0 for name in KERNELS}
-    n_cases = {name: 0 for name in KERNELS}
+    # K1-K5; K6 is checked with the memory planner's path (`memory_path`)
+    err = {name: 0 for name in KERNELS if name != GATHER}
+    n_cases = dict.fromkeys(err, 0)
 
     def record(name, got, want, label):
         torch.cuda.synchronize()
@@ -347,7 +413,7 @@ def check_kernels(inputs, device) -> dict:
         b = portfolio_step(w, h, ow, oh, nw, nh, backend="python", **kw)
         if a[0].shape != w.shape[:2] or not all(map(np.array_equal, a, b)):
             raise AssertionError(f"portfolio_step 3-D {sorted(kw)}: cuda != python")
-    for name in KERNELS:
+    for name in err:
         print(f"[kernels] {name}: {n_cases[name]} cases, max |kernel - plain| = {err[name]}")
     return err
 
@@ -415,10 +481,11 @@ def main_path_runs(device) -> dict:
               f"cuda {tk:.3f}s python {tp:.3f}s  (bit-identical) launches {json.dumps(nk)}")
     print(f"[main] launches: {json.dumps(launches)}")
     for name, n in launches.items():
-        if n <= 0 and name not in PORTFOLIO_KERNELS:
+        other_path = name in PORTFOLIO_KERNELS or name == GATHER
+        if n <= 0 and not other_path:
             raise AssertionError(f"{name} was not launched on the main path")
-        if n > 0 and name in PORTFOLIO_KERNELS:
-            raise AssertionError(f"{name} was launched outside the portfolio")
+        if n > 0 and other_path:
+            raise AssertionError(f"{name} was launched outside its own path")
     return launches
 
 
@@ -509,6 +576,8 @@ def portfolio_runs(device) -> dict:
     for name in PORTFOLIO_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the portfolio's main path")
+    if launches[GATHER]:
+        raise AssertionError(f"{GATHER} was launched on the portfolio's path")
     return dict(launches=launches, runs=runs)
 
 
@@ -535,6 +604,361 @@ def portfolio_timing(runs, device) -> None:
 
 
 # ----------------------------------------------------------------- phase 6
+def shape_tree(shapes, make):
+    """Nested dicts from ``(path, shape)`` pairs, each leaf ``make(shape)``."""
+    tree = {}
+    for path, shape in shapes:
+        *parents, name = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = make(shape)
+    return tree
+
+
+def plan_key(plans):
+    """Everything the planner's parity covers: banks, unpacked paths, bytes
+    and the packer's cost and generation count."""
+    return {
+        itemsize: dict(
+            banks=[[(e.path, e.row_offset, e.rows, e.cols) for e in b] for b in p.banks],
+            unpacked=list(p.unpacked), before=p.padded_bytes_before,
+            after=p.padded_bytes_after, logical=p.logical_bytes,
+            packer=None if p.packer_result is None
+            else (p.packer_result.cost, p.packer_result.iterations),
+        )
+        for itemsize, p in plans.items()
+    }
+
+
+def bank_inputs(store, gen):
+    """Per bank: a random (len(entries), C) activation block and the (R,)
+    int32 segment ids (entry i's rows are i, the padding rows 0)."""
+    import torch
+
+    out = {}
+    for (itemsize, bi), bank in store.banks.items():
+        entries = store.plans[itemsize].banks[bi]
+        seg = torch.zeros(bank.shape[0], dtype=torch.int32)
+        for i, e in enumerate(entries):
+            seg[e.row_offset:e.row_offset + e.rows] = i
+        x = torch.randn(len(entries), bank.shape[1], generator=gen, device=bank.device)
+        out[(itemsize, bi)] = (x, seg.to(bank.device))
+    return out
+
+
+class GatherCheck:
+    """Holds K6 outputs against a reference under float32 rounding: each of
+    a row's C products and partial sums rounds once, in whatever order, so
+    |y - y_ref| <= 2 * C * 2**-23 * sum_c |bank[r, c] * x[seg[r], c]| + 1e-6."""
+
+    def __init__(self):
+        self.cases = 0
+        self.max_abs_err = 0.0
+        self.max_err_over_tol = 0.0
+
+    def __call__(self, got, want, bank, x, seg, label):
+        import torch
+
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            raise AssertionError(f"{GATHER} {label}: {got.dtype} {tuple(got.shape)} "
+                                 f"vs {want.dtype} {tuple(want.shape)}")
+        n = x.shape[0]
+        s = seg.long()
+        valid = (s >= 0) & (s < n)
+        mag = torch.zeros(bank.shape[0], dtype=torch.float64, device=bank.device)
+        if n:
+            xs = x.double().abs()[s.clamp(0, n - 1)]
+            mag = torch.where(valid, (bank.double().abs() * xs).sum(1), mag)
+        tol = 2 * bank.shape[1] * 2.0**-23 * mag + 1e-6
+        err = (got.double() - want.double()).abs()
+        if got.numel():
+            self.max_abs_err = max(self.max_abs_err, float(err.max()))
+            self.max_err_over_tol = max(self.max_err_over_tol, float((err / tol).max()))
+        self.cases += 1
+        if not bool((err <= tol).all()):
+            i = int((err - tol).argmax())
+            raise AssertionError(f"{GATHER} {label}: row {i} |got - want| = "
+                                 f"{float(err[i])} > tolerance {float(tol[i])}")
+
+
+def check_packed_gather(largest, device, check) -> None:
+    """K6 against its plain version on the card in seeded cases: the
+    reference test's 20 random shapes, ragged N from 1 to 8, out-of-range
+    segment ids (must give exactly 0), no activations at all, and the
+    largest hymba bank with its own inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_gather import packed_gather_cuda, packed_gather_ref
+
+    def run(bank, x, seg, label):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             if isinstance(a, np.ndarray) else a for a in (bank, x, seg)]
+        got = packed_gather_cuda(*t)
+        check(got, packed_gather_ref(*t), *t, label)
+        return got
+
+    for seed in range(20):  # tests/test_kernels.py::test_packed_gather_property
+        rng = np.random.default_rng(seed)
+        r, c, n = 8 * int(rng.integers(1, 7)), 128 * int(rng.integers(1, 5)), int(rng.integers(1, 7))
+        run(rng.normal(size=(r, c)).astype(np.float32),
+            rng.normal(size=(n, c)).astype(np.float32),
+            rng.integers(0, n, r).astype(np.int32), f"reference case {seed}")
+    rng = np.random.default_rng(21)
+    for n in range(1, 9):
+        r, c = 8 * int(rng.integers(1, 65)), 128 * int(rng.integers(1, 9))
+        run(rng.normal(size=(r, c)).astype(np.float32),
+            rng.normal(size=(n, c)).astype(np.float32),
+            rng.integers(0, n, r).astype(np.int32), f"ragged N={n} {(r, c)}")
+    bank = rng.normal(size=(16, 256)).astype(np.float32)
+    x = rng.normal(size=(3, 256)).astype(np.float32)
+    seg = np.array([3, -1, 5, 0, 1, 2, -7, 2**31 - 1] * 2, np.int32)
+    got = run(bank, x, seg, "out-of-range segments").cpu().numpy()
+    if not np.all(got[(seg < 0) | (seg >= 3)] == 0):
+        raise AssertionError(f"{GATHER}: out-of-range segments did not give 0: {got}")
+    got = run(bank, np.zeros((0, 256), np.float32), seg, "no activations")
+    if bool(got.abs().max() != 0):
+        raise AssertionError(f"{GATHER}: no activations did not give 0")
+    run(*largest, f"largest hymba bank {tuple(largest[0].shape)}")
+
+
+def gather_timings(store, inputs, device) -> dict:
+    """K6 at the largest hymba bank, the most common one and the reference
+    benchmark's (2048, 1024) x N=4: per launch in a CUDA graph of 200
+    launches, cold (the launches rotate over copies of the inputs totalling
+    more than the 50 MB L2, as a pass over the store finds them) and warm
+    (one bank, L2-resident); the wrapper per call, the ops layer, the plain
+    version and the library's GEMM + gather, each on the same rotation; and
+    one whole pass over the store."""
+    import collections
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.packed_gather import (
+        bank_matvec, packed_gather_cuda, packed_gather_ref,
+    )
+
+    shapes = collections.Counter(tuple(b.shape) for b in store.banks.values())
+    largest = max(store.banks, key=lambda k: store.banks[k].numel())
+    common = next(k for k, b in store.banks.items()
+                  if tuple(b.shape) == shapes.most_common(1)[0][0])
+    gen = torch.Generator(device=device).manual_seed(MEMORY_SEED + 1)
+    bench_seg = torch.randint(0, 4, (2048,), generator=gen, device=device, dtype=torch.int32)
+    cases = {
+        "largest hymba bank": (store.banks[largest], *inputs[largest]),
+        "most common hymba bank": (store.banks[common], *inputs[common]),
+        "reference benchmark": (
+            torch.randn(2048, 1024, generator=gen, device=device),
+            torch.randn(4, 1024, generator=gen, device=device), bench_seg),
+    }
+    out = {}
+    for label, (bank, x, seg) in cases.items():
+        r, c = bank.shape
+        n = x.shape[0]
+        copies = max(2, -(-120 * 2**20 // (4 * bank.numel())))
+        sets = [(bank.clone(), x.clone(), seg.clone()) for _ in range(copies)]
+        sets64 = [(b, xx, s.long()[:, None]) for b, xx, s in sets]
+
+        def rotate(fn, pool):
+            it = itertools.cycle(pool)
+            return lambda: fn(*next(it))
+
+        kernel = rotate(packed_gather_cuda, sets)
+        plain = rotate(packed_gather_ref, sets)
+        library = rotate(lambda b, xx, s: (b @ xx.T).gather(1, s), sets64)
+        # in turns: kernel, library, plain, plain, library, kernel
+        k1 = time_graph(kernel, 200)
+        l1 = time_graph(library, 200)
+        p1 = time_events(plain, 200)
+        p2 = time_events(plain, 200)
+        l2 = time_graph(library, 200)
+        k2 = time_graph(kernel, 200)
+        n_bytes = 4 * r * c + 4 * n * c + 8 * r
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * r * c / FP32_FLOPS_PER_S * 1e3
+        out[label] = o = dict(
+            shape=(r, c, n), ms=min(k1, k2),
+            warm_ms=time_graph(lambda: packed_gather_cuda(bank, x, seg), 200),
+            call_ms=time_events(kernel, 500),
+            ops_ms=time_events(rotate(lambda b, xx, s: bank_matvec(b, xx, s, backend="cuda"),
+                                      sets), 500),
+            plain_ms=min(p1, p2), library_ms=min(l1, l2),
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=n_bytes, flops=2 * r * c, copies=copies,
+        )
+        print(f"[gather-timing] {label} (R, C, N) = {o['shape']}: kernel "
+              f"{o['ms']*1e3:.2f} us/launch cold, {o['warm_ms']*1e3:.2f} us warm (graph); "
+              f"wrapper call {o['call_ms']*1e3:.2f} us, ops {o['ops_ms']*1e3:.2f} us, plain "
+              f"{o['plain_ms']*1e3:.2f} us, library GEMM + gather {o['library_ms']*1e3:.2f} us, "
+              f"bound {o['bound_ms']*1e3:.3f} us ({o['bound_by']}: {n_bytes} B, "
+              f"{o['flops']} flop)")
+        del sets, sets64
+
+    banks = list(store.banks.items())
+
+    def one_pass(fn):
+        return lambda: [fn(b, *inputs[k]) for k, b in banks]
+
+    pass_bytes = sum(4 * b.numel() + 4 * inputs[k][0].numel() + 8 * b.shape[0]
+                     for k, b in banks)
+    kpass = one_pass(packed_gather_cuda)
+    ppass = one_pass(packed_gather_ref)
+    k1, p1 = time_graph(kpass, 5), time_events(ppass, 10)
+    p2, k2 = time_events(ppass, 10), time_graph(kpass, 5)
+    out["pass"] = o = dict(
+        banks=len(banks), ms=min(k1, k2), call_ms=time_events(kpass, 10),
+        plain_ms=min(p1, p2), bound_ms=pass_bytes / HBM_BYTES_PER_S * 1e3,
+        bytes=pass_bytes,
+    )
+    print(f"[gather-timing] one pass over the store ({len(banks)} banks, {pass_bytes} B): "
+          f"kernels {o['ms']*1e3:.1f} us (graph), wrapper calls {o['call_ms']*1e3:.1f} us, "
+          f"plain {o['plain_ms']*1e3:.1f} us, bound {o['bound_ms']*1e3:.1f} us")
+    return out
+
+
+def memory_path(device) -> dict:
+    """The memory planner's main path at hymba-1.5b's published widths:
+    random float32 weights on the card; ``plan_packing`` through host numpy
+    and then through the kernels (the GA's fitness on K1), identical and
+    stopped on patience; the packed store built on the card, unpacked bit
+    for bit and every packed view equal to its source; one K6 launch per
+    bank, each output held against the plain version and a per-entry
+    matvec.  Launch counts are set to 0 just before the ``cuda`` plan and
+    read just after the pass over the store.  Then K6's seeded checks, its
+    timings and a profiled pass."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.kernels.packed_gather import bank_matvec, packed_gather_ref
+    from repro_torch.memory import PackedParameterStore, plan_packing
+    from repro_torch.memory.planner import leaves_with_paths
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on; the per-entry check needs float32")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(MEMORY_SEED)
+    tree = shape_tree(HYMBA_1_5B_SHAPES,
+                      lambda shape: torch.randn(shape, generator=gen, device=device))
+    leaves = dict(leaves_with_paths(tree))
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves.values())
+    kw = dict(split_stacked=True, max_seconds=MEMORY_MAX_SECONDS, device=device)
+    t = time.perf_counter()
+    plans_py = plan_packing(tree, backend="python", **kw)
+    t_py = time.perf_counter() - t
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    plans = plan_packing(tree, backend="cuda", **kw)
+    t_cuda = time.perf_counter() - t
+    store = PackedParameterStore(tree, plans)
+    inputs = bank_inputs(store, gen)
+    ys = {k: bank_matvec(b, *inputs[k], backend="cuda")
+          for k, b in store.banks.items()}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+
+    if plan_key(plans) != plan_key(plans_py):
+        raise AssertionError("memory plan: cuda and python backends diverge")
+    for backend, ps in (("cuda", plans), ("python", plans_py)):
+        for p in ps.values():
+            r = p.packer_result
+            if r is None:
+                continue
+            if r.params["backend"] != backend:
+                raise AssertionError(f"memory plan ran on {r.params['backend']}")
+            # the GA stops on its wall clock, its generation budget or patience
+            if r.wall_time_s >= MEMORY_MAX_SECONDS or r.iterations >= 100_000:
+                raise AssertionError(f"memory plan ({backend}) did not stop on patience")
+    if launches[GATHER] != len(store.banks) or launches["binpack_fitness_cuda"] <= 0:
+        raise AssertionError(f"memory path launches {launches}: expected {GATHER} "
+                             f"{len(store.banks)} times and binpack_fitness_cuda")
+    if any(n for name, n in launches.items()
+           if name not in (GATHER, "binpack_fitness_cuda")):
+        raise AssertionError(f"memory path launched other kernels: {launches}")
+
+    unpacked = store.unpack()
+    for path, got in leaves_with_paths(unpacked):
+        if not torch.equal(got, leaves[path]):
+            raise AssertionError(f"store.unpack() differs at {path}")
+    for path in store.entries:
+        root, _, k = path.partition("#")
+        src = leaves[root][int(k)] if k else leaves[root]
+        if not torch.equal(store.view(path), src.reshape(store.view(path).shape)):
+            raise AssertionError(f"store.view({path}) differs from its source")
+
+    check = GatherCheck()
+    for key, bank in store.banks.items():
+        x, seg = inputs[key]
+        y = ys[key]
+        check(y, packed_gather_ref(bank, x, seg), bank, x, seg, f"bank {key} vs plain")
+        for i, e in enumerate(store.plans[key[0]].banks[key[1]]):
+            block = store.view(e.path).reshape(e.rows, e.cols)
+            rows = slice(e.row_offset, e.row_offset + e.rows)
+            check(y[rows], block @ x[i, :e.cols], bank[rows], x, seg[rows],
+                  f"bank {key} entry {e.path} vs matvec")
+        used = sum(e.rows for e in store.plans[key[0]].banks[key[1]])
+        if used < len(y) and bool(y[used:].abs().max() != 0):
+            raise AssertionError(f"bank {key}: padding rows did not give 0")
+    largest = max(store.banks, key=lambda k: store.banks[k].numel())
+    check_packed_gather((store.banks[largest], *inputs[largest]), device, check)
+    print(f"[memory] {GATHER}: {check.cases} cases, max |kernel - reference| = "
+          f"{check.max_abs_err:.3g}, max error / tolerance = {check.max_err_over_tol:.3g}")
+
+    plan = plans[4]
+    r = plan.packer_result
+    shapes = collections.Counter(tuple(b.shape) for b in store.banks.values())
+    summary = dict(
+        params=len(HYMBA_1_5B_SHAPES), param_bytes=n_bytes,
+        entries=sum(len(b) for b in plan.banks) + len(plan.unpacked),
+        packed=sum(len(b) for b in plan.banks), banks=len(plan.banks),
+        bank_bytes=sum(b.numel() * 4 for b in store.banks.values()),
+        padded_bytes_before=plan.padded_bytes_before,
+        padded_bytes_after=plan.padded_bytes_after, saved_bytes=plan.saved_bytes,
+        efficiency_before=plan.efficiency_before(), efficiency_after=plan.efficiency_after(),
+        cost=r.cost, generations=r.iterations,
+        plan_seconds={"python": t_py, "cuda": t_cuda},
+        packer_seconds={"python": plans_py[4].packer_result.wall_time_s,
+                        "cuda": r.wall_time_s},
+        common_shapes=[[list(s), n] for s, n in shapes.most_common(4)],
+        launches=launches,
+    )
+    for k in HYMBA_REFERENCE_PLAN:
+        if summary[k] != HYMBA_REFERENCE_PLAN[k]:
+            raise AssertionError(f"memory plan {k} = {summary[k]}, the reference's "
+                                 f"{HYMBA_REFERENCE_PLAN[k]}")
+    print(f"[memory] hymba-1.5b ({summary['params']} tensors, {n_bytes} B float32, "
+          f"{summary['entries']} per-layer entries): {summary['packed']} packed into "
+          f"{summary['banks']} banks ({summary['bank_bytes']} B), efficiency "
+          f"{summary['efficiency_before']:.6f} -> {summary['efficiency_after']:.6f}, "
+          f"saved {summary['saved_bytes']} B; GA cost {r.cost} after {r.iterations} "
+          f"generations (patience stop); plan python {t_py:.3f}s cuda {t_cuda:.3f}s "
+          f"(packer {summary['packer_seconds']['python']:.3f}s / {r.wall_time_s:.3f}s), "
+          f"bit-identical; most common banks {summary['common_shapes']}; "
+          f"launches {json.dumps(launches)}")
+
+    timings = gather_timings(store, inputs, device)
+    banks = list(store.banks.items())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for k, b in banks:
+            bank_matvec(b, *inputs[k], backend="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    profiled = device_share(prof, wall * 1e6, "memory pass", f"{len(banks)} banks")
+    print(f"[memory] phase took {time.perf_counter() - t_phase:.1f}s")
+    return dict(summary=summary, launches=launches, timings=timings, profile=profiled,
+                max_abs_err=check.max_abs_err, max_err_over_tol=check.max_err_over_tol,
+                cases=check.cases)
+
+
+
+# ----------------------------------------------------------------- phase 7
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
     import torch
@@ -1031,6 +1455,8 @@ def main() -> int:
     errs = check_kernels(inputs, device)
     launches = main_path_runs(device)
     portfolio = portfolio_runs(device)
+    memory = memory_path(device)
+    torch.cuda.empty_cache()  # the 6.6 GB tree is gone; later timings start clean
     timings = kernel_timings(inputs, device)
     loops = loop_breakdown(device)
     portfolio_timing(portfolio["runs"], device)
@@ -1038,8 +1464,22 @@ def main() -> int:
 
     record = []
     for name, (source, replaces) in KERNELS.items():
+        by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name],
+                   "memory": memory["launches"][name]}
+        if name == GATHER:
+            # at the largest hymba bank; every shape timed is in `timings`
+            tm = memory["timings"]["largest hymba bank"]
+            record.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=sum(by_path.values()), max_abs_err=memory["max_abs_err"],
+                ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
+                bound_by=tm["bound_by"], library_ms=tm["library_ms"],
+                launches_by_path=by_path, call_ms=tm["call_ms"], ops_ms=tm["ops_ms"],
+                warm_ms=tm["warm_ms"], shape=tm["shape"],
+                max_err_over_tol=memory["max_err_over_tol"], timings=memory["timings"],
+            ))
+            continue
         tm = timings[name]
-        by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name]}
         record.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), max_abs_err=errs[name],
@@ -1052,6 +1492,7 @@ def main() -> int:
         ))
     print(f"[loops] {json.dumps(loops)}")
     print(f"[portfolio] {json.dumps(portfolio['runs'])}")
+    print(f"[memory] {json.dumps(dict(memory['summary'], profile=memory['profile']))}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

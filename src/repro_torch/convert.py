@@ -1,15 +1,20 @@
-"""Carry problem and packing state into the port from plain data.
+"""Carry problem, packing and parameter state into the port from plain data.
 
-There are no weights here: the state is the problem (buffer geometry plus
-the RAM inventory) and the packing (bins plus their RAM-kind lane).  Both
-functions take plain numbers and lists — what ``repro``'s
-``PackingProblem`` arrays and ``Solution.state_dict()`` hold — so a test
-can rebuild the reference's problem and warm-start the port from a
-reference packing without the port importing ``repro``.
+The packing side's state is the problem (buffer geometry plus the RAM
+inventory) and the packing (bins plus their RAM-kind lane); the memory
+planner's is a model's parameter tree.  Every function takes plain numbers,
+lists and numpy arrays — what ``repro``'s ``PackingProblem`` arrays,
+``Solution.state_dict()`` and ``jax.device_get`` of its parameters hold — so
+a test can rebuild the reference's problem, warm-start the port from a
+reference packing and carry the reference's weights across without the
+port importing ``repro``.
 """
 from __future__ import annotations
 
 from typing import Sequence
+
+import numpy as np
+import torch
 
 from .core.problem import (
     RAM_KINDS,
@@ -18,6 +23,7 @@ from .core.problem import (
     PackingProblem,
     Solution,
 )
+from .device import resolve_device
 
 
 def problem_from_arrays(
@@ -62,3 +68,23 @@ def solution_from_state(problem: PackingProblem, state: dict) -> Solution:
     (the reference's ``Solution.state_dict()``); its geometry starts cold
     and re-derives every cost from the buffers."""
     return Solution.from_state_dict(problem, state)
+
+
+def params_from_arrays(tree, device=None):
+    """The port's parameter tree from the reference's: nested dicts (and
+    lists / tuples) of numpy arrays, e.g. ``jax.device_get`` of
+    ``repro.models.model.init_params(...)``, become the same structure of
+    torch tensors on ``device`` (``None`` means ``"cuda"``), values and
+    dtypes unchanged."""
+    device = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(v) for v in node)
+        if node is None:
+            return None
+        return torch.from_numpy(np.array(node)).to(device)
+
+    return convert(tree)

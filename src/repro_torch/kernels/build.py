@@ -21,7 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step")
+SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step", "packed_gather")
+# the sources whose kernels take the by-value `KindTables` argument
+KIND_TABLE_SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -167,6 +169,9 @@ _SIGNATURES = {
             _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _T, _P,
         ],
     },
+    "packed_gather": {
+        "packed_gather_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -188,13 +193,14 @@ def load(name: str) -> ctypes.CDLL:
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        lib.kind_tables_bytes.argtypes = []
-        lib.kind_tables_bytes.restype = ctypes.c_int
-        if lib.kind_tables_bytes() != ctypes.sizeof(KindTables):
-            raise RuntimeError(
-                f"{name}: struct KindTables is {lib.kind_tables_bytes()} bytes "
-                f"in C but {ctypes.sizeof(KindTables)} in ctypes"
-            )
+        if name in KIND_TABLE_SOURCES:
+            lib.kind_tables_bytes.argtypes = []
+            lib.kind_tables_bytes.restype = ctypes.c_int
+            if lib.kind_tables_bytes() != ctypes.sizeof(KindTables):
+                raise RuntimeError(
+                    f"{name}: struct KindTables is {lib.kind_tables_bytes()} bytes "
+                    f"in C but {ctypes.sizeof(KindTables)} in ctypes"
+                )
         _LIBS[name] = lib
         return lib
 

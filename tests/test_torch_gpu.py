@@ -1,6 +1,8 @@
 """The port's CUDA kernels K1-K5 on a card, exactly equal to their plain
 PyTorch versions on the same card tensors, and the island portfolio's
-fused barriers through K5 equal to the host backend.
+fused barriers through K5 equal to the host backend; K6 within float32
+rounding of its plain version, and the memory planner on the card equal
+to the host backend.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -32,6 +34,11 @@ from repro_torch.kernels.binpack_sa_step import (
     sa_step_deltas_kinds_cuda,
     sa_step_deltas_kinds_ref,
     sa_step_deltas_ref,
+)
+from repro_torch.kernels.packed_gather import (
+    bank_matvec,
+    packed_gather_cuda,
+    packed_gather_ref,
 )
 
 U50_TABLES = ((1, BRAM18.modes), (16, URAM288.modes))
@@ -161,3 +168,84 @@ def test_fused_portfolio_on_card_matches_host_backend():
     assert a.cost == b.cost and a.iterations == b.iterations
     assert a.solution.state_dict() == b.solution.state_dict()
     assert [x for _, x in a.trace] == [x for _, x in b.trace]
+
+
+def _gather_within_rounding(got, want, bank, x, seg):
+    """|got - want| <= 2 * C * 2**-23 * sum_c |bank * x[seg]| + 1e-6 per row
+    (float32 rounding of C products and sums, in any order)."""
+    n = x.shape[0]
+    s = seg.long()
+    valid = (s >= 0) & (s < n)
+    mag = (bank.double().abs() * x.double().abs()[s.clamp(0, n - 1)]).sum(1)
+    tol = 2 * bank.shape[1] * 2.0**-23 * torch.where(valid, mag, 0) + 1e-6
+    return bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_packed_gather_matches_plain_version_on_card():
+    """K6 launched once per case: the reference test's 20 shapes, the
+    largest hymba-1.5b bank's shape, the reference benchmark's and
+    out-of-range segment ids (exactly 0, as the Pallas kernel gives)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cases = []
+    for seed in range(20):
+        rng = np.random.default_rng(seed)
+        r, c, n = 8 * int(rng.integers(1, 7)), 128 * int(rng.integers(1, 5)), int(rng.integers(1, 7))
+        cases.append((rng.normal(size=(r, c)), rng.normal(size=(n, c)), rng.integers(0, n, r)))
+    rng = np.random.default_rng(20)
+    for r, c, n in [(3200, 384, 2), (2048, 1024, 4)]:
+        cases.append((rng.normal(size=(r, c)), rng.normal(size=(n, c)), rng.integers(0, n, r)))
+    cases.append((rng.normal(size=(8, 128)), rng.normal(size=(3, 128)),
+                  np.array([3, -1, 5, 0, 1, 2, -7, 2**31 - 1])))
+    kernels.reset_launch_counts()
+    for bank, x, seg in cases:
+        bank, x = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (bank, x))
+        seg = torch.from_numpy(seg.astype(np.int32)).to(dev)
+        got = packed_gather_cuda(bank, x, seg)
+        want = packed_gather_ref(bank, x, seg)
+        assert _gather_within_rounding(got, want, bank, x, seg)
+        out = (seg < 0) | (seg >= x.shape[0])
+        assert bool((got[out] == 0).all())
+    assert kernels.launch_counts()["packed_gather_cuda"] == len(cases)
+
+
+@pytest.mark.gpu
+def test_memory_planner_on_card_matches_host_backend():
+    """plan_packing on card tensors through the fitness kernel equals the
+    host backend's plan; the store unpacks bit for bit and K6 reads every
+    bank once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.memory import PackedParameterStore, plan_packing
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"embed": torch.randn(64, 256, generator=g, device=dev),
+            "layers": {"w": torch.randn(6, 24, 40, generator=g, device=dev),
+                       "b": torch.randn(6, 40, generator=g, device=dev),
+                       "s": torch.randn(6, 3, 200, generator=g, device=dev)}}
+    kw = dict(split_stacked=True, max_seconds=600)
+    kernels.reset_launch_counts()
+    plans = plan_packing(tree, backend="cuda", **kw)
+    assert kernels.launch_counts()["binpack_fitness_cuda"] > 0
+    host = plan_packing(tree, backend="python", **kw)
+    assert [[(e.path, e.row_offset) for e in b] for b in plans[4].banks] == \
+        [[(e.path, e.row_offset) for e in b] for b in host[4].banks]
+    assert plans[4].packer_result.cost == host[4].packer_result.cost
+    store = PackedParameterStore(tree, plans)
+    assert all(b.is_cuda for b in store.banks.values())
+    rebuilt = store.unpack()
+    assert torch.equal(rebuilt["embed"], tree["embed"])
+    assert all(torch.equal(rebuilt["layers"][k], tree["layers"][k]) for k in tree["layers"])
+    kernels.reset_launch_counts()
+    for (itemsize, bi), bank in store.banks.items():
+        entries = plans[itemsize].banks[bi]
+        seg = torch.zeros(bank.shape[0], dtype=torch.int32, device=dev)
+        for i, e in enumerate(entries):
+            seg[e.row_offset:e.row_offset + e.rows] = i
+        x = torch.randn(len(entries), bank.shape[1], generator=g, device=dev)
+        y = bank_matvec(bank, x, seg)
+        assert _gather_within_rounding(y, packed_gather_ref(bank, x, seg), bank, x, seg)
+    assert kernels.launch_counts()["packed_gather_cuda"] == len(store.banks)

@@ -84,9 +84,45 @@ def test_cpu_portfolio_loads_neither_jax_nor_reference():
     assert out.stdout.strip() == "ok"
 
 
+def test_cpu_memory_planner_loads_neither_jax_nor_reference():
+    """The memory planner, its store and K6's CPU path import nothing of
+    JAX or the reference."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from repro_torch.memory import PackedParameterStore, plan_packing\n"
+        "from repro_torch.kernels.packed_gather import bank_matvec\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "tree = {'embed': torch.randn(64, 256, generator=g),\n"
+        "        'layers': {'w': torch.randn(3, 24, 40, generator=g),\n"
+        "                   'b': torch.randn(3, 40, generator=g)}}\n"
+        "plans = plan_packing(tree, split_stacked=True, max_seconds=600, device='cpu')\n"
+        "store = PackedParameterStore(tree, plans)\n"
+        "assert plans[4].banks\n"
+        "for bank in store.banks.values():\n"
+        "    y = bank_matvec(bank, torch.ones(1, bank.shape[1]),\n"
+        "                    torch.zeros(bank.shape[0], dtype=torch.int32))\n"
+        "    assert torch.allclose(y, bank.sum(1), atol=1e-4)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_default_device_is_cuda_and_never_falls_back():
+    import numpy as np
+
     import repro_torch.core as c
+    from repro_torch.convert import params_from_arrays
     from repro_torch.device import resolve_backend, resolve_device
+    from repro_torch.memory import plan_packing
 
     prob = c.get_problem("CNV-W1A1")
     if torch.cuda.is_available():
@@ -99,6 +135,8 @@ def test_default_device_is_cuda_and_never_falls_back():
             lambda: c.pack(prob, "portfolio"),
             lambda: c.pack_portfolio(prob),
             lambda: resolve_device("cuda:0"),
+            lambda: plan_packing({"a": torch.zeros(1, 3), "b": torch.zeros(2)}),
+            lambda: params_from_arrays({"a": np.zeros(3)}),
         ):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
@@ -117,7 +155,8 @@ def test_kernels_build_nothing_at_import():
     code = (
         "import repro_torch.core, repro_torch.kernels.binpack_fitness, "
         "repro_torch.kernels.binpack_sa_step, "
-        "repro_torch.kernels.binpack_portfolio_step\n"
+        "repro_torch.kernels.binpack_portfolio_step, repro_torch.memory, "
+        "repro_torch.kernels.packed_gather, repro_torch.convert\n"
         "from repro_torch.kernels import build\n"
         "assert build._LIBS == {}\n"
         "print('ok')\n"

@@ -41,6 +41,7 @@ from repro_torch.kernels.binpack_sa_step import (
     sa_step_deltas_kinds_ref,
     sa_step_deltas_ref,
 )
+from repro_torch.kernels.packed_gather import packed_gather_cuda
 from repro_torch.kernels.build import MAX_KINDS, MAX_MODES
 
 U50_TABLES = ((1, BRAM18.modes), (16, URAM288.modes))
@@ -190,6 +191,8 @@ def test_cpu_wrappers_take_plain_versions_without_counting():
     portfolio_step_cuda(_t(w), _t(h), _t(w), _t(h), _t(w), _t(h), BRAM18_MODES)
     portfolio_step_kinds_cuda(_t(w), _t(h), _t(k), _t(w), _t(h), _t(k),
                               _t(w), _t(h), _t(k), U50_TABLES)
+    packed_gather_cuda(torch.zeros(8, 128), torch.zeros(2, 128),
+                       torch.zeros(8, dtype=torch.int32))
     assert kernels.launch_counts() == {
         "binpack_fitness_cuda": 0,
         "binpack_fitness_kinds_cuda": 0,
@@ -197,5 +200,6 @@ def test_cpu_wrappers_take_plain_versions_without_counting():
         "sa_step_deltas_kinds_cuda": 0,
         "portfolio_step_cuda": 0,
         "portfolio_step_kinds_cuda": 0,
+        "packed_gather_cuda": 0,
     }
 
