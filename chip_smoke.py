@@ -12,8 +12,10 @@ no result line):
    exactly equal: the main paths' own inputs (the RN152-W1A2 GA population,
    the 64-chain SA step, the portfolio's stacked two-island population and
    8-chain fleet step), ragged shapes, random mode tables, the U50 kind
-   tables, int32 extremes and the 3-D problem axis; K5 also against a
-   K1/K2 launch plus a K3/K4 launch on the same tensors;
+   tables, int32 extremes and the 3-D problem axis, and for K3 / K4 the
+   edges of their lane groups (T of 15, 16, 17, 33 by C of 31, 32, 33,
+   4095, and a 4 x 64 fleet); K5 also against a K1/K2 launch plus a K3/K4
+   launch on the same tensors;
 4. the engines' main path at full width: ``pack`` on RN152-W1A2 and
    RN152-W1A2@U50, GA-NFD, 64-chain and single-chain SA-S, once through
    the kernels (``backend="cuda"``, launch counts reset just before each
@@ -42,14 +44,21 @@ no result line):
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
-   K5 also the separate K1 + K3 launches it replaces); then each engine's
+   K5 also the separate K1 + K3 launches it replaces); K3 / K4's ops call
+   also in turns with the pageable call path it replaced and with its
+   result fetched by ``.cpu()`` or through a pinned buffer and an event,
+   and K3 / K4 at the three shapes the main paths give them (64, 8 and 1
+   chains x 4 slots);
+   every kernel's launch floor (its wrapper at the smallest legal
+   all-empty input, in the same graph harness); then each engine's
    generation / step loop alone (set-up excluded), ``python`` and ``cuda``
    in turns, split per step into host time and ops-layer time; the
    portfolio's wall time per engine group and per barrier, a second pair
    of runs in the other order;
 8. one cuda loop of each engine, and one cuda portfolio run on each
-   problem, under ``torch.profiler``: the device's busy share and its time
-   in kernels and in copies.
+   problem, under ``torch.profiler``: the device's busy share, its time
+   in kernels and in copies, and for the SA loops the host<->device copies
+   per step (the staged ops layer makes one each way).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and ``nvcc``; imports
@@ -359,6 +368,20 @@ def check_kernels(inputs, device) -> dict:
         nw, nh, nk = random_planes(rng, (c, t), n_kinds=2)
         k5(w, h, ow, oh, nw, nh, BRAM18_MODES, f"ragged {(a, p, nb)} + {(c, t)}")
         k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt_u50, f"ragged U50 {(a, p, nb)} + {(c, t)}")
+    # the edges of K3 / K4's lane groups (L = min(32, next power of two >= 2T)
+    # lanes per chain row, 32 / L rows per warp): T around 2T = 16 and 32
+    # lanes, C around a warp and a block's rows; and a 4 x 64 fleet as the
+    # one (NP * C, T) call the ops layer makes of it
+    for t in (15, 16, 17, 33):
+        for c in (31, 32, 33, 4095):
+            ow, oh, ok = random_planes(rng, (c, t), n_kinds=2)
+            nw, nh, nk = random_planes(rng, (c, t), n_kinds=2)
+            k3(ow, oh, nw, nh, BRAM18_MODES, f"lane-group edge {(c, t)}")
+            k4(ow, oh, ok, nw, nh, nk, kt_u50, f"lane-group edge U50 {(c, t)}")
+    ow, oh, ok = random_planes(rng, (4, 64, 4), n_kinds=2)
+    nw, nh, nk = random_planes(rng, (4, 64, 4), n_kinds=2)
+    k3(*(x.reshape(256, 4) for x in (ow, oh, nw, nh)), BRAM18_MODES, "4 x 64 fleet")
+    k4(*(x.reshape(256, 4) for x in (ow, oh, ok, nw, nh, nk)), kt_u50, "4 x 64 fleet U50")
     # int32 extremes: the kernels' unsigned 32-bit ceil-division stays exact
     big = (2**31 - 1000, 2**31)
     modes_big = ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1))
@@ -1003,6 +1026,57 @@ def time_host(fn, n: int) -> float:
     return (time.perf_counter() - t) / n * 1e3
 
 
+def sa_step_work(req, kind_tables) -> tuple[int, int]:
+    """Bytes and operations of one SA delta step on the host request ``req``
+    = (old_w, old_h, new_w, new_h, old_k, new_k) (kind lanes None on one
+    kind, costed on ``kind_tables[0]``): every width read once (it says which
+    slots are live), the heights (and kinds) at live slots only, the int64
+    deltas written once; 4 operations per mode per live slot (two
+    ceil-divisions, a product, a min), on that slot's own mode table."""
+    import numpy as np
+
+    ow, _, nw, _, ok, nk = req
+    plane_bytes = 4 if ok is None else 8
+    if ok is None:
+        ok, nk = np.zeros_like(ow), np.zeros_like(nw)
+    live = int((ow > 0).sum()) + int((nw > 0).sum())
+    n_bytes = 4 * (ow.size + nw.size) + plane_bytes * live + 8 * ow.shape[0]
+    ops = 4 * sum(len(m) * int(((x > 0) & (k == i)).sum())
+                  for i, (_, m) in enumerate(kind_tables) for x, k in ((ow, ok), (nw, nk)))
+    return n_bytes, ops
+
+
+def bound_of(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the INT32 operations over their issue rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_host_rounds(fns: dict, rounds: int = 12, n: int = 50) -> dict:
+    """Milliseconds per call of each of ``fns``, host clock to a
+    synchronise: ``rounds`` rounds of ``n`` calls each, the functions in
+    turns (order reversed every other round); the median round of each.
+    The host is shared, so one long sample can land on a slow stretch."""
+    import statistics
+
+    import torch
+
+    per = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(rounds):
+        for k in names if r % 2 == 0 else names[::-1]:
+            fns[k]()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+            torch.cuda.synchronize()
+            per[k].append((time.perf_counter() - t) / n * 1e3)
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
 def kernel_timings(inputs, device) -> dict:
     import numpy as np
     import torch
@@ -1016,6 +1090,7 @@ def kernel_timings(inputs, device) -> dict:
         portfolio_step, portfolio_step_cuda, portfolio_step_kinds_cuda,
         portfolio_step_kinds_ref, portfolio_step_ref,
     )
+    from repro_torch.kernels import staging
     from repro_torch.kernels.binpack_sa_step import (
         sa_step_deltas, sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
         sa_step_deltas_kinds_ref, sa_step_deltas_ref,
@@ -1057,6 +1132,8 @@ def kernel_timings(inputs, device) -> dict:
         return 4 * sum(len(m) * int(((x > 0) & (k == i)).sum())
                        for i, (_, m) in enumerate(kt) for x, k in pairs)
 
+    k3_work = sa_step_work(hom["req"], ((1, BRAM18_MODES),))
+    k4_work = sa_step_work(het["req"], kt)
     # Bytes the function must move: every width read once (it says which
     # slots are live), the other planes read only at live slots (an empty
     # slot costs 0 whatever its height or kind), the int64 output written
@@ -1088,9 +1165,19 @@ def kernel_timings(inputs, device) -> dict:
             plain=lambda: sa_step_deltas_ref(*sa_hom, BRAM18_MODES),
             ops=lambda: sa_step_deltas(*hom["req"][:4], backend="cuda", device=device),
             host=hom["req"][:4],
-            bytes=4 * (sa_hom[0].numel() + sa_hom[2].numel())
-            + 4 * (live(sa_hom[0]) + live(sa_hom[2])) + 8 * sa_hom[0].shape[0],
-            ops_count=4 * n_modes_hom * (live(sa_hom[0]) + live(sa_hom[2])),
+            staged=True,
+            # the ops layer's steps spelt out (stage, launch on the plane
+            # views, fetch), to time two ways of fetching the result in turns
+            wrapper=lambda *planes: sa_step_deltas_cuda(*planes, BRAM18_MODES),
+            staged_host=hom["req"][:4],
+            # the pageable call path the staged one replaced, for a comparison
+            # on the same host: each plane copied from pageable memory, the
+            # result back with `.cpu()`
+            pageable=lambda: sa_step_deltas_cuda(
+                *(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
+                  for x in hom["req"][:4]), BRAM18_MODES).cpu().numpy(),
+            bytes=k3_work[0],
+            ops_count=k3_work[1],
             shape=tuple(sa_hom[0].shape),
         ),
         "sa_step_deltas_kinds_cuda": dict(
@@ -1100,11 +1187,14 @@ def kernel_timings(inputs, device) -> dict:
                                        old_k=het["req"][4], new_k=het["req"][5],
                                        kind_tables=kt),
             host=het["req"],
-            bytes=4 * (ow.numel() + nw.numel()) + 8 * (live(ow) + live(nw))
-            + 8 * ow.shape[0],
-            ops_count=4 * sum(len(m) * int(((x > 0) & (k == i)).sum())
-                              for i, (_, m) in enumerate(kt)
-                              for x, k in ((ow, ok), (nw, nk))),
+            staged=True,
+            wrapper=lambda *planes: sa_step_deltas_kinds_cuda(*planes, kt),
+            staged_host=tuple(het["req"][i] for i in (0, 1, 4, 2, 3, 5)),
+            pageable=lambda: sa_step_deltas_kinds_cuda(
+                *(torch.from_numpy(np.ascontiguousarray(het["req"][i], dtype=np.int32))
+                  .to(device) for i in (0, 1, 4, 2, 3, 5)), kt).cpu().numpy(),
+            bytes=k4_work[0],
+            ops_count=k4_work[1],
             shape=tuple(ow.shape),
         ),
         "portfolio_step_cuda": dict(
@@ -1137,17 +1227,31 @@ def kernel_timings(inputs, device) -> dict:
             shape=(tuple(het["W2"].shape), tuple(pw.shape)),
         ),
     }
+    def cpu_fetch(x):
+        return x.cpu().numpy()
+
+    def pinned_fetch(x):
+        """The other way to fetch a result: one non-blocking copy into a
+        pinned buffer, then a wait on an event recorded after it."""
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return host.numpy()
+
     out = {}
     for name, c in cases.items():
-        t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = c["ops_count"] / INT32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound_of(c["bytes"], c["ops_count"])
         # alternate kernel and plain runs (kernel, plain, plain, kernel)
         k1 = time_graph(c["kernel"], 200)
         p1 = time_events(c["plain"], 200)
         p2 = time_events(c["plain"], 200)
         k2 = time_graph(c["kernel"], 200)
-        # the ops layer's copies on their own: every host plane to the card
-        # as `_plane` does it, and the (rows,) int64 result back
+        # the ops layer's copies on their own, as it makes them: K3 / K4
+        # stage every plane into one pinned buffer and copy it once
+        # (`staging`), K1, K2 and K5 copy each host plane from pageable
+        # memory; all bring the (rows,) int64 result back with `.cpu()`
         host = [np.ascontiguousarray(x, dtype=np.int32) for x in c["host"]]
         res = c["kernel"]()
         res = res if isinstance(res, tuple) else (res,)  # K5 returns both halves
@@ -1155,8 +1259,12 @@ def kernel_timings(inputs, device) -> dict:
         def d2h():
             return [x.cpu() for x in res]
 
-        def h2d():
-            return [torch.from_numpy(x).to(device) for x in host]
+        if c.get("staged"):
+            def h2d():
+                return staging.stage(host, device)
+        else:
+            def h2d():
+                return [torch.from_numpy(x).to(device) for x in host]
 
         def h2d_sync():
             h2d()
@@ -1170,13 +1278,35 @@ def kernel_timings(inputs, device) -> dict:
             h2d_ms=time_events(h2d, 200),
             h2d_host_ms=time_host(h2d_sync, 200),
             d2h_host_ms=time_host(d2h, 200),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound_ms,
+            bound_by=bound_by,
             bytes=c["bytes"],
             operations=c["ops_count"],
             shape=c["shape"],
         )
         o = out[name]
+        if c.get("staged"):
+            # in turns (medians of 12 rounds): the ops call, the pageable call
+            # path it replaced, and its steps spelt out with the result
+            # fetched by `.cpu()` (as the ops layer does) or through a pinned
+            # buffer and an event; then the two fetches alone
+            def staged_with(fetch, c=c):
+                return lambda: fetch(c["wrapper"](
+                    *staging.stage(c["staged_host"], device).unbind(0)))
+
+            variants = {"ops": c["ops"], "pageable": c["pageable"],
+                        "cpu_fetch": staged_with(cpu_fetch),
+                        "pinned_fetch": staged_with(pinned_fetch)}
+            want = c["ops"]()
+            for k, fn in variants.items():
+                if not np.array_equal(fn(), want):
+                    raise AssertionError(f"{name}: the {k} call path disagrees with the ops call")
+            r = time_host_rounds(variants)
+            o.update(ops_turns_ms=r["ops"], ops_pageable_ms=r["pageable"],
+                     ops_cpu_fetch_ms=r["cpu_fetch"], ops_pinned_fetch_ms=r["pinned_fetch"])
+            r = time_host_rounds({"cpu": lambda: cpu_fetch(res[0]),
+                                  "pinned": lambda: pinned_fetch(res[0])})
+            o.update(d2h_cpu_ms=r["cpu"], d2h_pinned_ms=r["pinned"])
         if "separate" in c:
             # the separate pair at the same shapes, timed like the kernel (a
             # graph of pairs, per pair), in turns with a third kernel sample
@@ -1192,7 +1322,121 @@ def kernel_timings(inputs, device) -> dict:
               f"{o['bound_ms']*1e3:.4f} us ({o['bound_by']}: {o['bytes']} B, "
               f"{o['operations']} ops)"
               + (f"; the separate K1/K2 + K3/K4 pair it replaces "
-                 f"{o['separate_ms']*1e3:.2f} us" if "separate_ms" in o else ""))
+                 f"{o['separate_ms']*1e3:.2f} us" if "separate_ms" in o else "")
+              + (f"; in turns (medians of 12 rounds): ops layer staged "
+                 f"{o['ops_turns_ms']*1e3:.2f} us, the pageable call path (a copy per "
+                 f"plane, `.cpu()` back) {o['ops_pageable_ms']*1e3:.2f} us, staged with "
+                 f"a `.cpu()` fetch {o['ops_cpu_fetch_ms']*1e3:.2f} us / with a pinned "
+                 f"fetch and an event {o['ops_pinned_fetch_ms']*1e3:.2f} us; the fetch "
+                 f"alone by `.cpu()` {o['d2h_cpu_ms']*1e3:.2f} us / pinned + event "
+                 f"{o['d2h_pinned_ms']*1e3:.2f} us"
+                 if "ops_turns_ms" in o else ""))
+    return out
+
+
+def sa_shape_timings(inputs, device) -> dict:
+    """K3 and K4 at the three shapes the main paths give them: the 64-chain
+    fleet's step (SA-S x64), the portfolio's 8-chain fleet step and one
+    chain's step (SA-S x1, the first row of the 64-chain request).  Per
+    shape: device time per launch (CUDA graph, kernel / plain / plain /
+    kernel), the ops layer per call with its staged copies (the median of six
+    rounds), and the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.problem import BRAM18_MODES
+    from repro_torch.kernels.binpack_sa_step import (
+        sa_step_deltas, sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
+        sa_step_deltas_kinds_ref, sa_step_deltas_ref,
+    )
+
+    hom, het = inputs[None], inputs[DEVICE_U50]
+    kt = het["prob"].kind_tables
+    reqs = {
+        "sa-s x64": (hom["req"], het["req"]),
+        "portfolio fleet": (hom["req8"], het["req8"]),
+        "sa-s x1": (tuple(x[:1] for x in hom["req"][:4]), tuple(x[:1] for x in het["req"])),
+    }
+    out = {"sa_step_deltas_cuda": {}, "sa_step_deltas_kinds_cuda": {}}
+    for label, (rh, rk) in reqs.items():
+        ow, oh, nw, nh = (torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
+                          for x in rh[:4])
+        kow, koh, knw, knh, kok, knk = (
+            torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device) for x in rk)
+        cases = {
+            "sa_step_deltas_cuda": dict(
+                kernel=lambda: sa_step_deltas_cuda(ow, oh, nw, nh, BRAM18_MODES),
+                plain=lambda: sa_step_deltas_ref(ow, oh, nw, nh, BRAM18_MODES),
+                ops=lambda: sa_step_deltas(*rh[:4], backend="cuda", device=device),
+                work=sa_step_work(tuple(rh[:4]) + (None, None), ((1, BRAM18_MODES),)),
+            ),
+            "sa_step_deltas_kinds_cuda": dict(
+                kernel=lambda: sa_step_deltas_kinds_cuda(kow, koh, kok, knw, knh, knk, kt),
+                plain=lambda: sa_step_deltas_kinds_ref(kow, koh, kok, knw, knh, knk, kt),
+                ops=lambda: sa_step_deltas(*rk[:4], backend="cuda", device=device,
+                                           old_k=rk[4], new_k=rk[5], kind_tables=kt),
+                work=sa_step_work(rk, kt),
+            ),
+        }
+        for name, c in cases.items():
+            k1 = time_graph(c["kernel"], 200)
+            p1 = time_events(c["plain"], 200)
+            p2 = time_events(c["plain"], 200)
+            k2 = time_graph(c["kernel"], 200)
+            n_bytes, n_ops = c["work"]
+            bound_ms, bound_by = bound_of(n_bytes, n_ops)
+            out[name][label] = o = dict(
+                shape=tuple(np.shape(rh[0])), ms=min(k1, k2), plain_ms=min(p1, p2),
+                ops_ms=time_host_rounds({"ops": c["ops"]}, rounds=6)["ops"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                bytes=n_bytes, operations=n_ops,
+            )
+            print(f"[sa-timing] {name} {label} {o['shape']}: kernel {o['ms']*1e3:.2f} "
+                  f"us/launch (graph), plain {o['plain_ms']*1e3:.2f} us, ops layer with "
+                  f"staged copies {o['ops_ms']*1e3:.2f} us, bound {bound_ms*1e3:.4f} us "
+                  f"({bound_by}: {n_bytes} B, {n_ops} ops)")
+    return out
+
+
+def floor_timings(device) -> dict:
+    """Each kernel's launch floor: its wrapper at the smallest legal input,
+    every slot empty (K6: an (8, 128) bank of zeros, N = 1), per launch in
+    the same CUDA-graph harness as its ``ms`` (200 launches, the lower of
+    two samples)."""
+    import torch
+
+    from repro_torch.core.problem import BRAM18_MODES
+    from repro_torch.kernels.binpack_fitness import (
+        binpack_fitness_cuda, binpack_fitness_kinds_cuda,
+    )
+    from repro_torch.kernels.binpack_portfolio_step import (
+        portfolio_step_cuda, portfolio_step_kinds_cuda,
+    )
+    from repro_torch.kernels.binpack_sa_step import (
+        sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
+    )
+    from repro_torch.kernels.packed_gather import packed_gather_cuda
+
+    kt = ((1, BRAM18_MODES),)
+    z = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    bank = torch.zeros((8, 128), dtype=torch.float32, device=device)
+    x = torch.zeros((1, 128), dtype=torch.float32, device=device)
+    seg = torch.zeros(8, dtype=torch.int32, device=device)
+    cases = {
+        "binpack_fitness_cuda": lambda: binpack_fitness_cuda(z, z, BRAM18_MODES),
+        "binpack_fitness_kinds_cuda": lambda: binpack_fitness_kinds_cuda(z, z, z, kt),
+        "sa_step_deltas_cuda": lambda: sa_step_deltas_cuda(z, z, z, z, BRAM18_MODES),
+        "sa_step_deltas_kinds_cuda": lambda: sa_step_deltas_kinds_cuda(z, z, z, z, z, z, kt),
+        "portfolio_step_cuda": lambda: portfolio_step_cuda(z, z, z, z, z, z, BRAM18_MODES),
+        "portfolio_step_kinds_cuda": lambda: portfolio_step_kinds_cuda(
+            z, z, z, z, z, z, z, z, z, kt),
+        "packed_gather_cuda": lambda: packed_gather_cuda(bank, x, seg),
+    }
+    out = {}
+    for name, fn in cases.items():
+        out[name] = min(time_graph(fn, 200), time_graph(fn, 200))
+        print(f"[floor] {name}: {out[name]*1e3:.2f} us/launch (graph) at its smallest "
+              f"all-empty input")
     return out
 
 
@@ -1200,7 +1444,7 @@ class OpsTimer:
     """Host-clock (entry time, duration) of every call the engines make to
     the ops layer (`population_costs`, `sa_step_deltas`) while active.  The
     engines import both at call time, so swapping the module attributes
-    reaches every engine.  A cuda call ends in a synchronising copy back, so
+    reaches every engine.  A cuda call ends in a wait on its copy back, so
     its duration holds the copies, the launch and the kernel."""
 
     def __enter__(self):
@@ -1384,8 +1628,14 @@ def profile_loops(device) -> dict:
             r = engine_loop(alg, kw, rc.get_problem(PROBLEM, device=dev), "cuda",
                             device, around)
             key = f"{label} {prob_name}"
-            out[key] = device_share(holder["prof"], r["loop"] * 1e6, key,
-                                    f"{len(r['steps'])} steps")
+            out[key] = o = device_share(holder["prof"], r["loop"] * 1e6, key,
+                                        f"{len(r['steps'])} steps")
+            if alg.startswith("sa") and "HtoD_n" in o:
+                # one ops call per step: the staged path makes one copy each way
+                o["h2d_per_step"] = o["HtoD_n"] / len(r["steps"])
+                o["d2h_per_step"] = o["DtoH_n"] / len(r["steps"])
+                print(f"[profile] {key}: {o['h2d_per_step']:.3f} host->device and "
+                      f"{o['d2h_per_step']:.3f} device->host copies per step")
     # the portfolio's default lineup, the whole run (set-up included): the
     # main lane and the side-lane thread launch into one profile
     for dev in (None, DEVICE_U50):
@@ -1458,6 +1708,8 @@ def main() -> int:
     memory = memory_path(device)
     torch.cuda.empty_cache()  # the 6.6 GB tree is gone; later timings start clean
     timings = kernel_timings(inputs, device)
+    sa_shapes = sa_shape_timings(inputs, device)
+    floors = floor_timings(device)
     loops = loop_breakdown(device)
     portfolio_timing(portfolio["runs"], device)
     profiled = profile_loops(device)
@@ -1473,7 +1725,7 @@ def main() -> int:
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(by_path.values()), max_abs_err=memory["max_abs_err"],
                 ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-                bound_by=tm["bound_by"], library_ms=tm["library_ms"],
+                bound_by=tm["bound_by"], library_ms=tm["library_ms"], floor_ms=floors[name],
                 launches_by_path=by_path, call_ms=tm["call_ms"], ops_ms=tm["ops_ms"],
                 warm_ms=tm["warm_ms"], shape=tm["shape"],
                 max_err_over_tol=memory["max_err_over_tol"], timings=memory["timings"],
@@ -1484,11 +1736,16 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), max_abs_err=errs[name],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-            bound_by=tm["bound_by"], library_ms=None, launches_by_path=by_path,
+            bound_by=tm["bound_by"], library_ms=None, floor_ms=floors[name],
+            launches_by_path=by_path,
             call_ms=tm["call_ms"], ops_ms=tm["ops_ms"], h2d_ms=tm["h2d_ms"],
             h2d_host_ms=tm["h2d_host_ms"], d2h_host_ms=tm["d2h_host_ms"],
             shape=tm["shape"],
+            **{k: tm[k] for k in ("ops_turns_ms", "ops_pageable_ms", "ops_cpu_fetch_ms",
+                                  "ops_pinned_fetch_ms", "d2h_cpu_ms", "d2h_pinned_ms")
+               if k in tm},
             **({"separate_ms": tm["separate_ms"]} if "separate_ms" in tm else {}),
+            **({"shapes": sa_shapes[name]} if name in sa_shapes else {}),
         ))
     print(f"[loops] {json.dumps(loops)}")
     print(f"[portfolio] {json.dumps(portfolio['runs'])}")

@@ -10,10 +10,11 @@ Backends:
 * ``"cuda"`` — the hand-written kernels K3 / K4 (``kernel.py``); on a CPU
   device their wrappers take the plain version.
 
-The engines' state is host numpy, so the torch and cuda backends copy the
-planes to ``device`` and the deltas back every step.  All backends use
-exact integer arithmetic and return bit-identical deltas, so the annealer's
-trajectory cannot depend on the backend.
+The engines' state is host numpy, so the torch and cuda backends move a
+step's planes to ``device`` in ONE copy from one pinned ``(P, R, T)`` host
+buffer (``kernels/staging.py``) and the deltas back in one ``.cpu()``
+copy.  All backends use exact integer arithmetic and return bit-identical
+deltas, so the annealer's trajectory cannot depend on the backend.
 
 The Metropolis *comparison* (``u < exp(-d_e / T)``) deliberately stays on
 the host in float64 (`metropolis_mask`, or a conditional scalar draw in the
@@ -27,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..staging import stage
 from .kernel import sa_step_deltas_cuda, sa_step_deltas_kinds_cuda
 from .ref import sa_step_deltas_kinds_ref, sa_step_deltas_ref
 
@@ -51,11 +53,10 @@ def _bin_costs_kinds_numpy(w, h, k, kind_tables) -> np.ndarray:
     return out
 
 
-def _planes(arrays, device, t) -> list[torch.Tensor]:
-    return [
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32).reshape(-1, t)).to(device)
-        for a in arrays
-    ]
+def _planes(arrays, device) -> tuple[torch.Tensor, ...]:
+    """The planes on ``device`` as views of one staged ``(P, R, T)`` tensor
+    (one host->device copy)."""
+    return stage(arrays, device).unbind(0)
 
 
 def sa_step_deltas(
@@ -98,17 +99,16 @@ def sa_step_deltas(
             new_c = _bin_costs_numpy(new_w, new_h, modes)
             old_c = _bin_costs_numpy(old_w, old_h, modes)
         return np.sum(new_c - old_c, axis=-1)
-    t = np.shape(old_w)[-1]
     if hetero:
         ow, oh, ok, nw, nh, nk = _planes(
-            (old_w, old_h, old_k, new_w, new_h, new_k), device, t
+            (old_w, old_h, old_k, new_w, new_h, new_k), device
         )
         if backend == "cuda":
             out = sa_step_deltas_kinds_cuda(ow, oh, ok, nw, nh, nk, kind_tables)
         else:
             out = sa_step_deltas_kinds_ref(ow, oh, ok, nw, nh, nk, kind_tables)
     else:
-        ow, oh, nw, nh = _planes((old_w, old_h, new_w, new_h), device, t)
+        ow, oh, nw, nh = _planes((old_w, old_h, new_w, new_h), device)
         if backend == "cuda":
             out = sa_step_deltas_cuda(ow, oh, nw, nh, modes)
         else:

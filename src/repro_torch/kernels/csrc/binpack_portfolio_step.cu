@@ -12,10 +12,12 @@
 //   blocks 0 .. n_rows-1   one population row each: the strided row loop and
 //                          warp-shuffle sum of K1 / K2 (`fitness_row`);
 //   blocks n_rows ..       256 chains each, one thread per chain: the delta
-//                          sum of K3 / K4 (`sa_delta_row`).
+//                          sum of K3 / K4's first design (`sa_delta_row`).
 //
-// Both bodies come from binpack_rows.cuh, so K5's results are the separate
-// kernels' results bit for bit (exact integer arithmetic).  The mode tables
+// Both bodies come from binpack_rows.cuh and cost a slot with kind_cost's
+// exact integer arithmetic, so K5's results are the separate kernels'
+// results bit for bit (K3 / K4 now sum a row over a group of lanes, which
+// cannot change an integer sum).  The mode tables
 // are one by-value `KindTables` argument shared by both roles (a portfolio's
 // islands share one problem).
 //

@@ -1,10 +1,15 @@
-// Row bodies of the bin-packing kernels, shared by K1-K5 so the fitness,
-// SA-delta and fused portfolio kernels run the same code:
+// Row bodies of the bin-packing kernels K1, K2 and K5, so the fitness and
+// fused portfolio kernels run the same code:
 //
 //   fitness_row   one block sums one population row's bin costs (K1 / K2,
 //                 and the GA role of K5);
 //   sa_delta_row  one thread sums one chain row's cost(new) - cost(old)
-//                 over its touched slots (K3 / K4, and the SA role of K5).
+//                 over its touched slots (the SA role of K5).
+//
+// K3 / K4 have their own lane-parallel row body in binpack_sa_step.cu (a
+// group of lanes per chain row, the mode loop unrolled, the tables in
+// shared memory); it computes what sa_delta_row computes, and K5's SA role
+// can take it when K5 is redesigned.
 //
 // Both are exact: int32 inputs, unsigned 32-bit ceil-divisions and 64-bit
 // products and sums (kind_tables.cuh).

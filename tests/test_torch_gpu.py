@@ -1,8 +1,9 @@
 """The port's CUDA kernels K1-K5 on a card, exactly equal to their plain
-PyTorch versions on the same card tensors, and the island portfolio's
-fused barriers through K5 equal to the host backend; K6 within float32
-rounding of its plain version, and the memory planner on the card equal
-to the host backend.
+PyTorch versions on the same card tensors (K3 / K4 also at the edges of
+their lane groups), the SA ops layer staging through a pinned buffer, and
+the island portfolio's fused barriers through K5 equal to the host
+backend; K6 within float32 rounding of its plain version, and the memory
+planner on the card equal to the host backend.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -81,6 +82,75 @@ def test_kernels_match_plain_versions_on_card():
         binpack_fitness_cuda, binpack_fitness_kinds_cuda,
         sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
     ))
+
+
+@pytest.mark.gpu
+def test_sa_kernels_match_plain_versions_at_lane_group_edges_on_card():
+    """K3 / K4's lane-parallel body at the shapes its lane groups make
+    awkward (T around 2T = 16 and 32 lanes, C around a warp and a block, a
+    4 x 64 fleet as one call), the int32 extremes included: max |kernel -
+    plain| = 0, one launch per case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    shapes = ([(33, t) for t in (1, 2, 4, 7, 8, 9, 15, 16, 17, 33, 130)]
+              + [(c, 4) for c in (1, 31, 32, 33, 4095, 4096)]
+              + [(4 * 64, 4), (4095, 17), (31, 130)])
+    kernels.reset_launch_counts()
+    for c, t in shapes:
+        old = _planes(rng, (c, t), dev)
+        new = _planes(rng, (c, t), dev)
+        args = (old[0], old[1], new[0], new[1], BRAM18_MODES)
+        assert int((sa_step_deltas_cuda(*args) - sa_step_deltas_ref(*args)).abs().max()) == 0
+        args = (old[0], old[1], old[2], new[0], new[1], new[2], U50_TABLES)
+        assert int((sa_step_deltas_kinds_cuda(*args)
+                    - sa_step_deltas_kinds_ref(*args)).abs().max()) == 0
+    big = torch.from_numpy(
+        rng.integers(2**31 - 1000, 2**31, (4, 5, 17)).astype(np.int32)).to(dev)
+    kinds = torch.from_numpy(rng.integers(0, 2, (2, 5, 17)).astype(np.int32)).to(dev)
+    modes_big = ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1))
+    kt_big = ((1, modes_big), (5, ((2**31 - 1, 2**31 - 1),)))
+    assert torch.equal(sa_step_deltas_cuda(*big, modes_big), sa_step_deltas_ref(*big, modes_big))
+    args = (big[0], big[1], kinds[0], big[2], big[3], kinds[1], kt_big)
+    assert torch.equal(sa_step_deltas_kinds_cuda(*args), sa_step_deltas_kinds_ref(*args))
+    counts = kernels.launch_counts()
+    assert counts["sa_step_deltas_cuda"] == counts["sa_step_deltas_kinds_cuda"] == len(shapes) + 1
+
+
+@pytest.mark.gpu
+def test_sa_ops_stage_through_pinned_buffers_on_card(monkeypatch):
+    """An SA ops call on the card takes exactly one host buffer, pinned,
+    holding every plane (one host->device copy); the deltas come back equal
+    to the host backend's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import staging
+    from repro_torch.kernels.binpack_sa_step import sa_step_deltas
+
+    taken = []
+    inner = staging.host_buffer
+
+    def spy(shape, dtype, device):
+        buf = inner(shape, dtype, device)
+        taken.append(buf)
+        return buf
+
+    monkeypatch.setattr(staging, "host_buffer", spy)
+    rng = np.random.default_rng(4)
+    for shape in [(64, 4), (1, 4), (4, 64, 4)]:
+        old = [x.numpy() for x in _planes(rng, shape, "cpu")]
+        new = [x.numpy() for x in _planes(rng, shape, "cpu")]
+        for kw, n_planes in (({}, 4), (dict(old_k=old[2], new_k=new[2],
+                                            kind_tables=U50_TABLES), 6)):
+            taken.clear()
+            got = sa_step_deltas(old[0], old[1], new[0], new[1], backend="cuda",
+                                 device="cuda", **kw)
+            want = sa_step_deltas(old[0], old[1], new[0], new[1], backend="python", **kw)
+            assert np.array_equal(got, want) and got.shape == shape[:-1]
+            assert len(taken) == 1 and taken[0].is_pinned()
+            rows = int(np.prod(shape[:-1]))
+            assert tuple(taken[0].shape) == (n_planes, rows, shape[-1])
 
 
 @pytest.mark.gpu
