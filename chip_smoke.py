@@ -14,7 +14,10 @@ no result line):
    8-chain fleet step), ragged shapes, random mode tables, the U50 kind
    tables, int32 extremes and the 3-D problem axis, and for K3 / K4 the
    edges of their lane groups (T of 15, 16, 17, 33 by C of 31, 32, 33,
-   4095, and a 4 x 64 fleet); K5 also against a K1/K2 launch plus a K3/K4
+   4095, and a 4 x 64 fleet), for K1 / K2 the edges of their row blocks
+   (NB of 1, the block's 1024 threads +- 1, its 4096-slot pass +- 1, two
+   passes + 1 and 2253, by P of 1, 75, 77 and 300; int32 extremes and
+   random tables there too); K5 also against a K1/K2 launch plus a K3/K4
    launch on the same tensors;
 4. the engines' main path at full width: ``pack`` on RN152-W1A2 and
    RN152-W1A2@U50, GA-NFD, 64-chain and single-chain SA-S, once through
@@ -44,11 +47,12 @@ no result line):
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
-   K5 also the separate K1 + K3 launches it replaces); K3 / K4's ops call
-   also in turns with the pageable call path it replaced and with its
-   result fetched by ``.cpu()`` or through a pinned buffer and an event,
-   and K3 / K4 at the three shapes the main paths give them (64, 8 and 1
-   chains x 4 slots);
+   K5 also the separate K1 + K3 launches it replaces; for K1 / K2 also
+   K5 with no chains, the first design's row body, at the same shapes, and
+   K1 at the memory planner's own shape); K1-K4's ops call also in turns
+   with the pageable call path it replaced and with its result fetched by
+   ``.cpu()`` or through a pinned buffer and an event, and K3 / K4 at the
+   three shapes the main paths give them (64, 8 and 1 chains x 4 slots);
    every kernel's launch floor (its wrapper at the smallest legal
    all-empty input, in the same graph harness); then each engine's
    generation / step loop alone (set-up excluded), ``python`` and ``cuda``
@@ -57,8 +61,8 @@ no result line):
    of runs in the other order;
 8. one cuda loop of each engine, and one cuda portfolio run on each
    problem, under ``torch.profiler``: the device's busy share, its time
-   in kernels and in copies, and for the SA loops the host<->device copies
-   per step (the staged ops layer makes one each way).
+   in kernels and in copies, and the host<->device copies per step and per
+   kernel launch (the staged ops layers make one each way per call).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and ``nvcc``; imports
@@ -382,6 +386,30 @@ def check_kernels(inputs, device) -> dict:
     nw, nh, nk = random_planes(rng, (4, 64, 4), n_kinds=2)
     k3(*(x.reshape(256, 4) for x in (ow, oh, nw, nh)), BRAM18_MODES, "4 x 64 fleet")
     k4(*(x.reshape(256, 4) for x in (ow, oh, ok, nw, nh, nk)), kt_u50, "4 x 64 fleet U50")
+    # the edges of K1 / K2's row blocks (1024 threads, 4 slots a thread in
+    # each 4096-slot pass, looping past one pass) by population sizes around
+    # the GA's 75 rows; the int32 extremes (the magic-number division and
+    # the 64-bit product path) and random tables across a pass edge
+    from repro_torch.kernels.build import FITNESS_CHUNK as chunk, FITNESS_THREADS as threads
+    edge_nb = (1, threads - 1, threads, threads + 1, chunk - 1, chunk, chunk + 1,
+               2 * chunk + 1, 2253)
+    for p in (1, 75, 77, 300):
+        for nb in edge_nb:
+            w, h, k = random_planes(rng, (p, nb), n_kinds=2)
+            k1(w, h, BRAM18_MODES, f"row-block edge {(p, nb)}")
+            k2(w, h, k, kt_u50, f"row-block edge U50 {(p, nb)}")
+    for nb in (threads + 1, chunk + 1):
+        w, h, k = (rng.integers(2**31 - 1000, 2**31, (5, nb)).astype(np.int32),
+                   rng.integers(0, 2**31, (5, nb)).astype(np.int32),
+                   rng.integers(-1, 6, (5, nb)).astype(np.int32))
+        w[:, ::3] = rng.integers(1, 70_000, (5, (nb + 2) // 3))  # w * h < 2^32 too
+        k1(w, h, ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1)), f"row-block edge int32 extremes {nb}")
+        k2(w, h, k, ((1, ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1))),
+                     (5, ((2**31 - 1, 2**31 - 1),))), f"row-block edge int32 extremes {nb}")
+        kt = random_kind_tables(rng)
+        w, h, k = random_planes(rng, (77, nb), n_kinds=len(kt) + 1)  # a kind past the table
+        k1(w, h, kt[0][1], f"row-block edge random modes {nb}")
+        k2(w, h, k, kt, f"row-block edge random tables {nb}")
     # int32 extremes: the kernels' unsigned 32-bit ceil-division stays exact
     big = (2**31 - 1000, 2**31)
     modes_big = ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1))
@@ -875,10 +903,27 @@ def memory_path(device) -> dict:
     plans_py = plan_packing(tree, backend="python", **kw)
     t_py = time.perf_counter() - t
 
+    # the shapes the planner's GA hands K1, and the inputs of the last call
+    # of each shape (host copies), to time K1 at the planner's own shape
+    from repro_torch.kernels.binpack_fitness import ops as fops
+
+    k1_calls = collections.Counter()
+    k1_inputs = {}
+    k1_wrapper = fops.binpack_fitness_cuda
+
+    def k1_recorded(w, h, modes):
+        k1_calls[tuple(w.shape)] += 1
+        k1_inputs[tuple(w.shape)] = (w.cpu().numpy(), h.cpu().numpy(), modes)
+        return k1_wrapper(w, h, modes)
+
+    fops.binpack_fitness_cuda = k1_recorded
     kernels.reset_launch_counts()
-    t = time.perf_counter()
-    plans = plan_packing(tree, backend="cuda", **kw)
-    t_cuda = time.perf_counter() - t
+    try:
+        t = time.perf_counter()
+        plans = plan_packing(tree, backend="cuda", **kw)
+        t_cuda = time.perf_counter() - t
+    finally:
+        fops.binpack_fitness_cuda = k1_wrapper
     store = PackedParameterStore(tree, plans)
     inputs = bank_inputs(store, gen)
     ys = {k: bank_matvec(b, *inputs[k], backend="cuda")
@@ -950,6 +995,7 @@ def memory_path(device) -> dict:
                         "cuda": r.wall_time_s},
         common_shapes=[[list(s), n] for s, n in shapes.most_common(4)],
         launches=launches,
+        k1_shapes=[[list(s), n] for s, n in k1_calls.most_common()],
     )
     for k in HYMBA_REFERENCE_PLAN:
         if summary[k] != HYMBA_REFERENCE_PLAN[k]:
@@ -963,7 +1009,8 @@ def memory_path(device) -> dict:
           f"generations (patience stop); plan python {t_py:.3f}s cuda {t_cuda:.3f}s "
           f"(packer {summary['packer_seconds']['python']:.3f}s / {r.wall_time_s:.3f}s), "
           f"bit-identical; most common banks {summary['common_shapes']}; "
-          f"launches {json.dumps(launches)}")
+          f"launches {json.dumps(launches)}; K1 shapes (P, NB): count "
+          f"{summary['k1_shapes']}")
 
     timings = gather_timings(store, inputs, device)
     banks = list(store.banks.items())
@@ -977,7 +1024,7 @@ def memory_path(device) -> dict:
     print(f"[memory] phase took {time.perf_counter() - t_phase:.1f}s")
     return dict(summary=summary, launches=launches, timings=timings, profile=profiled,
                 max_abs_err=check.max_abs_err, max_err_over_tol=check.max_err_over_tol,
-                cases=check.cases)
+                cases=check.cases, k1_input=k1_inputs[k1_calls.most_common(1)[0][0]])
 
 
 
@@ -1077,9 +1124,14 @@ def time_host_rounds(fns: dict, rounds: int = 12, n: int = 50) -> dict:
     return {k: statistics.median(v) for k, v in per.items()}
 
 
-def kernel_timings(inputs, device) -> dict:
+def kernel_timings(inputs, device, planner_k1) -> dict:
+    """Every K1-K5 at its main-path shape (see the `[timing]` lines);
+    ``planner_k1`` is one (W, H, modes) input of K1 at the memory planner's
+    most common shape."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels import build
 
     from repro_torch.core.problem import BRAM18_MODES
     from repro_torch.kernels.binpack_fitness import (
@@ -1134,6 +1186,16 @@ def kernel_timings(inputs, device) -> dict:
 
     k3_work = sa_step_work(hom["req"], ((1, BRAM18_MODES),))
     k4_work = sa_step_work(het["req"], kt)
+    z4 = torch.zeros((0, 4), dtype=torch.int32, device=device)  # K5 with no chains
+
+    def pageable(wrapper, arrays, *tables):
+        """PR 14's fitness ops call: each host plane copied from pageable
+        memory on its own, the wrapper, the totals back with `.cpu()`."""
+        nb = np.shape(arrays[0])[-1]
+        planes = (torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32).reshape(-1, nb))
+                  .to(device) for x in arrays)
+        return wrapper(*planes, *tables).cpu().numpy()
+
     # Bytes the function must move: every width read once (it says which
     # slots are live), the other planes read only at live slots (an empty
     # slot costs 0 whatever its height or kind), the int64 output written
@@ -1145,6 +1207,15 @@ def kernel_timings(inputs, device) -> dict:
             plain=lambda: binpack_fitness_ref(W, H, BRAM18_MODES).sum(1),
             ops=lambda: population_costs(hom["W"], hom["H"], backend="cuda", device=device),
             host=(hom["W"], hom["H"]),
+            staged=True,
+            wrapper=lambda *planes: binpack_fitness_cuda(*planes, BRAM18_MODES),
+            staged_host=(hom["W"], hom["H"]),
+            pageable=lambda: pageable(binpack_fitness_cuda, (hom["W"], hom["H"]), BRAM18_MODES),
+            # the first design's row body at the same shape: K5 with no chains
+            old=lambda: portfolio_step_cuda(W, H, z4, z4, z4, z4, BRAM18_MODES),
+            # the wrapper's by-value table: PR 14 built it on every call
+            tables=(lambda: build.kind_tables_struct(((1, BRAM18_MODES),)),
+                    lambda: build.fitness_modes_struct(BRAM18_MODES)),
             bytes=4 * W.numel() + 4 * live(W) + 8 * W.shape[0],
             ops_count=4 * n_modes_hom * live(W),
             shape=tuple(W.shape),
@@ -1155,6 +1226,14 @@ def kernel_timings(inputs, device) -> dict:
             ops=lambda: population_costs(het["W"], het["H"], backend="cuda",
                                          kinds=het["K"], kind_tables=kt, device=device),
             host=(het["W"], het["H"], het["K"]),
+            staged=True,
+            wrapper=lambda *planes: binpack_fitness_kinds_cuda(*planes, kt),
+            staged_host=(het["W"], het["H"], het["K"]),
+            pageable=lambda: pageable(binpack_fitness_kinds_cuda,
+                                      (het["W"], het["H"], het["K"]), kt),
+            old=lambda: portfolio_step_kinds_cuda(Wk, Hk, Kk, z4, z4, z4, z4, z4, z4, kt),
+            tables=(lambda: build.kind_tables_struct(kt),
+                    lambda: build.fitness_tables_struct(kt)),
             bytes=4 * Wk.numel() + 8 * live(Wk) + 8 * Wk.shape[0],
             ops_count=4 * sum(len(m) * int(((Wk > 0) & (Kk == i)).sum())
                               for i, (_, m) in enumerate(kt)),
@@ -1307,6 +1386,15 @@ def kernel_timings(inputs, device) -> dict:
             r = time_host_rounds({"cpu": lambda: cpu_fetch(res[0]),
                                   "pinned": lambda: pinned_fetch(res[0])})
             o.update(d2h_cpu_ms=r["cpu"], d2h_pinned_ms=r["pinned"])
+        if "old" in c:
+            # the first design's body at the same shape, in turns with two
+            # more kernel samples (kernel, old, old, kernel)
+            k3_ = time_graph(c["kernel"], 200)
+            o["old_ms"] = min(time_graph(c["old"], 200), time_graph(c["old"], 200))
+            o["ms"] = min(o["ms"], k3_, time_graph(c["kernel"], 200))
+            uncached, cached = c["tables"]
+            o["tables_uncached_ms"] = time_host(uncached, 200)
+            o["tables_cached_ms"] = time_host(cached, 200)
         if "separate" in c:
             # the separate pair at the same shapes, timed like the kernel (a
             # graph of pairs, per pair), in turns with a third kernel sample
@@ -1323,6 +1411,9 @@ def kernel_timings(inputs, device) -> dict:
               f"{o['operations']} ops)"
               + (f"; the separate K1/K2 + K3/K4 pair it replaces "
                  f"{o['separate_ms']*1e3:.2f} us" if "separate_ms" in o else "")
+              + (f"; the first design's row body (K5, no chains) {o['old_ms']*1e3:.2f} us; "
+                 f"the by-value table built per call {o['tables_uncached_ms']*1e3:.2f} us, "
+                 f"cached {o['tables_cached_ms']*1e3:.2f} us" if "old_ms" in o else "")
               + (f"; in turns (medians of 12 rounds): ops layer staged "
                  f"{o['ops_turns_ms']*1e3:.2f} us, the pageable call path (a copy per "
                  f"plane, `.cpu()` back) {o['ops_pageable_ms']*1e3:.2f} us, staged with "
@@ -1331,6 +1422,23 @@ def kernel_timings(inputs, device) -> dict:
                  f"alone by `.cpu()` {o['d2h_cpu_ms']*1e3:.2f} us / pinned + event "
                  f"{o['d2h_pinned_ms']*1e3:.2f} us"
                  if "ops_turns_ms" in o else ""))
+
+    # K1 at the memory planner's own shape, on one of its inputs, beside
+    # the first design's body there
+    pw, ph, pmodes = planner_k1
+    pW, pH = dev(pw, ph)
+    kern = lambda: binpack_fitness_cuda(pW, pH, pmodes)  # noqa: E731
+    old = lambda: portfolio_step_cuda(pW, pH, z4, z4, z4, z4, pmodes)  # noqa: E731
+    a, b, c2, d = time_graph(kern, 200), time_graph(old, 200), time_graph(old, 200), time_graph(kern, 200)
+    n_bytes = 4 * pW.numel() + 4 * live(pW) + 8 * pW.shape[0]
+    bound_ms, bound_by = bound_of(n_bytes, 4 * len(pmodes) * live(pW))
+    out["binpack_fitness_cuda"]["planner"] = o = dict(
+        shape=tuple(pW.shape), ms=min(a, d), old_ms=min(b, c2), bound_ms=bound_ms,
+        bound_by=bound_by, bytes=n_bytes, modes=len(pmodes))
+    print(f"[timing] binpack_fitness_cuda at the memory planner's shape {o['shape']} "
+          f"({o['modes']} modes): kernel {o['ms']*1e3:.2f} us/launch (graph), the first "
+          f"design's row body (K5, no chains) {o['old_ms']*1e3:.2f} us, bound "
+          f"{bound_ms*1e3:.4f} us ({bound_by}: {n_bytes} B)")
     return out
 
 
@@ -1504,7 +1612,8 @@ def engine_loop(alg, kw, prob, backend, device, around):
                 steps.append(time.perf_counter() - t)
                 ops_s.append(sum(d for _, d in ops.calls[n_calls:]))
             loop = time.perf_counter() - t0
-        return dict(loop=loop, steps=steps, ops=ops_s, chains=1, key=run.best_cost)
+        return dict(loop=loop, steps=steps, ops=ops_s, calls=len(ops.calls), chains=1,
+                    key=run.best_cost)
     eng._hetero = prob.n_kinds > 1  # as SimulatedAnnealing.pack sets it
     if eng.n_chains == 1:
         st = eng._single_start(prob, None, eng_backend)
@@ -1520,7 +1629,7 @@ def engine_loop(alg, kw, prob, backend, device, around):
     entries = [t for t, _ in ops.calls] + [t0 + loop]
     steps = list(np.diff(entries))
     key = st.best_cost if eng.n_chains == 1 else int(st.gbest_cost[0])
-    return dict(loop=loop, steps=steps, ops=[d for _, d in ops.calls],
+    return dict(loop=loop, steps=steps, ops=[d for _, d in ops.calls], calls=len(ops.calls),
                 chains=eng.n_chains, key=key)
 
 
@@ -1610,7 +1719,7 @@ def profile_loops(device) -> dict:
     import repro_torch.core as rc
 
     short = {
-        "ga-nfd": ("ga-nfd", dict(max_generations=10)),
+        "ga-nfd": ("ga-nfd", dict(max_generations=20)),
         "sa-s x64": ("sa-s", dict(n_chains=SA_CHAINS, max_iterations=200)),
         "sa-s x1": ("sa-s", dict(n_chains=1, max_iterations=500)),
     }
@@ -1630,12 +1739,21 @@ def profile_loops(device) -> dict:
             key = f"{label} {prob_name}"
             out[key] = o = device_share(holder["prof"], r["loop"] * 1e6, key,
                                         f"{len(r['steps'])} steps")
-            if alg.startswith("sa") and "HtoD_n" in o:
-                # one ops call per step: the staged path makes one copy each way
-                o["h2d_per_step"] = o["HtoD_n"] / len(r["steps"])
-                o["d2h_per_step"] = o["DtoH_n"] / len(r["steps"])
+            if "HtoD_n" in o:
+                # the staged ops layers make one copy each way per ops call,
+                # and each call launches one kernel; an SA step makes one
+                # call, a GA generation one (if it mutated).  The profile
+                # records none of the first few calls' device events, so
+                # the copies per recorded launch are the per-call count.
+                n_steps, n_launches = len(r["steps"]), max(o["kernel_n"], 1)
+                o.update(h2d_per_step=o["HtoD_n"] / n_steps, d2h_per_step=o["DtoH_n"] / n_steps,
+                         h2d_per_launch=o["HtoD_n"] / n_launches,
+                         d2h_per_launch=o["DtoH_n"] / n_launches, ops_calls=r["calls"])
                 print(f"[profile] {key}: {o['h2d_per_step']:.3f} host->device and "
-                      f"{o['d2h_per_step']:.3f} device->host copies per step")
+                      f"{o['d2h_per_step']:.3f} device->host copies per "
+                      f"{'generation' if alg.startswith('ga') else 'step'} ({r['calls']} ops "
+                      f"calls); {o['h2d_per_launch']:.3f} and {o['d2h_per_launch']:.3f} per "
+                      f"recorded kernel launch ({o['kernel_n']})")
     # the portfolio's default lineup, the whole run (set-up included): the
     # main lane and the side-lane thread launch into one profile
     for dev in (None, DEVICE_U50):
@@ -1707,7 +1825,7 @@ def main() -> int:
     portfolio = portfolio_runs(device)
     memory = memory_path(device)
     torch.cuda.empty_cache()  # the 6.6 GB tree is gone; later timings start clean
-    timings = kernel_timings(inputs, device)
+    timings = kernel_timings(inputs, device, memory["k1_input"])
     sa_shapes = sa_shape_timings(inputs, device)
     floors = floor_timings(device)
     loops = loop_breakdown(device)
@@ -1742,7 +1860,9 @@ def main() -> int:
             h2d_host_ms=tm["h2d_host_ms"], d2h_host_ms=tm["d2h_host_ms"],
             shape=tm["shape"],
             **{k: tm[k] for k in ("ops_turns_ms", "ops_pageable_ms", "ops_cpu_fetch_ms",
-                                  "ops_pinned_fetch_ms", "d2h_cpu_ms", "d2h_pinned_ms")
+                                  "ops_pinned_fetch_ms", "d2h_cpu_ms", "d2h_pinned_ms",
+                                  "old_ms", "tables_uncached_ms", "tables_cached_ms",
+                                  "planner")
                if k in tm},
             **({"separate_ms": tm["separate_ms"]} if "separate_ms" in tm else {}),
             **({"shapes": sa_shapes[name]} if name in sa_shapes else {}),

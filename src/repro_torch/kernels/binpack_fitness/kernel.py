@@ -7,6 +7,8 @@
 return the ``(P,)`` int64 per-row totals.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor, and only a CPU tensor, takes the plain
 version in ``ref.py``.  Each wrapper counts its launches in ``.launches``.
+The by-value table argument (``build.FitnessTables``: each divisor as a
+magic number and a shift) is built once per distinct table and cached.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import ctypes
 import torch
 
 from ..build import (
-    check_planes, count_launch, kind_tables_struct, launch, load, modes_struct,
+    check_planes, count_launch, fitness_modes_struct, fitness_tables_struct, launch, load,
 )
 from .ref import binpack_fitness_kinds_ref, binpack_fitness_ref
 
@@ -25,7 +27,7 @@ def binpack_fitness_cuda(
 ) -> torch.Tensor:
     """K1: ``(P, NB)`` geometry -> ``(P,)`` int64 total cost per row."""
     device = check_planes("binpack_fitness", (widths, heights))
-    tables = modes_struct(modes)
+    tables = fitness_modes_struct(modes)
     if device.type == "cpu":
         return binpack_fitness_ref(widths, heights, modes).sum(dim=1)
     p, nb = widths.shape
@@ -51,7 +53,7 @@ def binpack_fitness_kinds_cuda(
     """K2: K1 with a ``(P, NB)`` int32 RAM-kind plane selecting, per bin,
     the mode table and unit weight of ``kind_tables``."""
     device = check_planes("binpack_fitness_kinds", (widths, heights, kinds))
-    tables = kind_tables_struct(kind_tables)
+    tables = fitness_tables_struct(kind_tables)
     if device.type == "cpu":
         return binpack_fitness_kinds_ref(widths, heights, kinds, kind_tables).sum(dim=1)
     p, nb = widths.shape

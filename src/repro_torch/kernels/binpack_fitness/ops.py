@@ -3,8 +3,10 @@ generation-evaluation primitive).
 
 Rows are individuals, columns are bins, entries are the bin geometry; empty
 (padded) slots carry ``width == 0`` and cost nothing.  The engines keep
-their state in host numpy, so this layer copies the geometry to ``device``,
-evaluates, and copies the totals back.  Backends:
+their state in host numpy, so this layer moves the geometry to ``device`` in
+ONE copy from one pinned ``(2|3, R, NB)`` host buffer
+(``kernels/staging.py``), evaluates on views of it, and brings the totals
+back with one ``.cpu()`` copy.  Backends:
 
 * ``"cuda"`` — the hand-written kernels K1 / K2 (``kernel.py``); on a CPU
   device their wrappers take the plain version.
@@ -16,18 +18,12 @@ problem's ``kind_tables`` (``((weight, modes), ...)`` per RAM kind).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from ..staging import stage
 from .kernel import binpack_fitness_cuda, binpack_fitness_kinds_cuda
 from .ref import binpack_fitness_kinds_ref, binpack_fitness_ref
 
 BACKENDS = ("cuda", "torch")
-
-
-def _plane(x, device, nb) -> torch.Tensor:
-    """A host array as a contiguous (rows, nb) int32 tensor on ``device``."""
-    x = np.ascontiguousarray(x, dtype=np.int32).reshape(-1, nb)
-    return torch.from_numpy(x).to(device)
 
 
 def population_costs(
@@ -58,17 +54,16 @@ def population_costs(
 
         modes = BRAM18_MODES
     lead = tuple(np.shape(widths)[:-1])
-    nb = np.shape(widths)[-1]
-    w = _plane(widths, device, nb)
-    h = _plane(heights, device, nb)
     if kinds is not None:
-        k = _plane(kinds, device, nb)
+        w, h, k = stage((widths, heights, kinds), device).unbind(0)
         if backend == "cuda":
             totals = binpack_fitness_kinds_cuda(w, h, k, kind_tables)
         else:
             totals = binpack_fitness_kinds_ref(w, h, k, kind_tables).sum(dim=1)
-    elif backend == "cuda":
-        totals = binpack_fitness_cuda(w, h, modes)
     else:
-        totals = binpack_fitness_ref(w, h, modes).sum(dim=1)
+        w, h = stage((widths, heights), device).unbind(0)
+        if backend == "cuda":
+            totals = binpack_fitness_cuda(w, h, modes)
+        else:
+            totals = binpack_fitness_ref(w, h, modes).sum(dim=1)
     return totals.cpu().numpy().reshape(lead)

@@ -12,6 +12,7 @@ runs at import time: the CPU tests import every module on a host without
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,8 +23,6 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step", "packed_gather")
-# the sources whose kernels take the by-value `KindTables` argument
-KIND_TABLE_SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -83,6 +82,94 @@ def kind_tables_struct(kind_tables) -> KindTables:
 def modes_struct(modes) -> KindTables:
     """A single mode table (the homogeneous kernels) as kind 0, weight 1."""
     return kind_tables_struct(((1, modes),))
+
+
+# K1 / K2 (csrc/binpack_fitness.cu) take their own by-value table: every
+# (kind, mode) divisor as a magic number and a shift, so the kernel divides
+# by multiplying.  Must match `FitnessMode` / `FitnessTables` there.
+class FitnessMode(ctypes.Structure):
+    _fields_ = [
+        ("magic_w", ctypes.c_uint32),
+        ("magic_d", ctypes.c_uint32),
+        ("shift_w", ctypes.c_uint32),
+        ("shift_d", ctypes.c_uint32),
+    ]
+
+
+class FitnessTables(ctypes.Structure):
+    _fields_ = [
+        # one spare mode per kind: the kernel's shared-memory copy is
+        # bank-padded by it
+        ("mode", (FitnessMode * (MAX_MODES + 1)) * MAX_KINDS),
+        ("weight", ctypes.c_int32 * MAX_KINDS),
+    ]
+
+
+assert ctypes.sizeof(FitnessTables) == 592, ctypes.sizeof(FitnessTables)
+# K1 / K2's launch geometry, as csrc/binpack_fitness.cu fixes it: one block
+# of 1024 threads per row, taking the row in passes of 4096 slots
+FITNESS_THREADS = 1024
+FITNESS_CHUNK = 4096
+
+
+def ceil_div_magic(d: int) -> tuple[int, int]:
+    """``(magic, shift)`` with, for every ``1 <= x <= 2**31 - 1``,
+
+        ceil(x / d) == ((magic * 2 * (x - 1)) >> 32 >> shift) + 1
+
+    (the kernel's ``(__umulhi(magic, 2 (x - 1)) >> shift) + 1``):
+    ``shift = ceil(log2 d)``, ``magic = ceil(2**(31 + shift) / d) < 2**32``.
+    The proof is in csrc/binpack_fitness.cu.  Raises for a divisor outside
+    ``1 .. 2**31 - 1``."""
+    d = int(d)
+    if not 1 <= d <= _I32_MAX:
+        raise ValueError(f"divisor {d} outside 1..2**31-1")
+    shift = (d - 1).bit_length()
+    magic = -(-(1 << (31 + shift)) // d)
+    assert magic < 2**32, (d, magic)
+    return magic, shift
+
+
+def _frozen_tables(kind_tables) -> tuple:
+    """``kind_tables`` as nested tuples of ints (hashable; lists accepted)."""
+    return tuple(
+        (int(weight), tuple((int(mw), int(md)) for mw, md in modes))
+        for weight, modes in kind_tables
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _fitness_tables(kind_tables) -> FitnessTables:
+    frozen = _frozen_tables(kind_tables)
+    kind_tables_struct(frozen)  # the same limits as every kernel's tables
+    t = FitnessTables()
+    for k, (weight, modes) in enumerate(frozen):
+        t.weight[k] = weight
+        for m in range(MAX_MODES + 1):
+            # modes past the kind's count repeat its mode 0, so the
+            # kernel's unrolled minimum needs no select
+            mw, md = modes[m] if m < len(modes) else modes[0]
+            slot = t.mode[k][m]
+            slot.magic_w, slot.shift_w = ceil_div_magic(mw)
+            slot.magic_d, slot.shift_d = ceil_div_magic(md)
+    # a kind past the table keeps weight 0 (and zero modes), so costs 0
+    return t
+
+
+def fitness_tables_struct(kind_tables) -> FitnessTables:
+    """``((weight, ((mode_w, mode_d), ...)), ...)`` -> K1 / K2's by-value
+    kernel argument, built once per distinct table and shared (it is never
+    written after it is built, so the portfolio's lane threads may pass it
+    at once).  Raises as `kind_tables_struct` does."""
+    try:
+        return _fitness_tables(kind_tables)  # a table of tuples hashes as it is
+    except TypeError:  # lists: cached under their tuple form
+        return _fitness_tables(_frozen_tables(kind_tables))
+
+
+def fitness_modes_struct(modes) -> FitnessTables:
+    """K1's single mode table as kind 0, weight 1."""
+    return fitness_tables_struct(((1, modes),))
 
 
 def _source_hash() -> str:
@@ -154,10 +241,11 @@ def _build(names) -> dict[str, str]:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _T = ctypes.POINTER(KindTables)
+_F = ctypes.POINTER(FitnessTables)
 _SIGNATURES = {
     "binpack_fitness": {
-        "binpack_fitness_launch": [_P, _P, _P, _I, _I, _T, _P],
-        "binpack_fitness_kinds_launch": [_P, _P, _P, _P, _I, _I, _T, _P],
+        "binpack_fitness_launch": [_P, _P, _P, _I, _I, _F, _P],
+        "binpack_fitness_kinds_launch": [_P, _P, _P, _P, _I, _I, _F, _P],
     },
     "binpack_sa_step": {
         "sa_step_deltas_launch": [_P, _P, _P, _P, _P, _I, _I, _T, _P],
@@ -172,6 +260,20 @@ _SIGNATURES = {
     "packed_gather": {
         "packed_gather_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
+}
+# Values a library reports through plain-C functions, checked at load
+# against this module's before the first launch: the by-value structs'
+# sizes and K1 / K2's launch geometry.
+LIBRARY_CONSTANTS = {
+    "kind_tables_bytes": ctypes.sizeof(KindTables),
+    "fitness_tables_bytes": ctypes.sizeof(FitnessTables),
+    "fitness_threads": FITNESS_THREADS,
+    "fitness_chunk_slots": FITNESS_CHUNK,
+}
+_CHECKED = {
+    "binpack_fitness": ("fitness_tables_bytes", "fitness_threads", "fitness_chunk_slots"),
+    "binpack_sa_step": ("kind_tables_bytes",),
+    "binpack_portfolio_step": ("kind_tables_bytes",),
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -193,13 +295,13 @@ def load(name: str) -> ctypes.CDLL:
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        if name in KIND_TABLE_SOURCES:
-            lib.kind_tables_bytes.argtypes = []
-            lib.kind_tables_bytes.restype = ctypes.c_int
-            if lib.kind_tables_bytes() != ctypes.sizeof(KindTables):
+        for fn in _CHECKED.get(name, ()):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+            if getattr(lib, fn)() != LIBRARY_CONSTANTS[fn]:
                 raise RuntimeError(
-                    f"{name}: struct KindTables is {lib.kind_tables_bytes()} bytes "
-                    f"in C but {ctypes.sizeof(KindTables)} in ctypes"
+                    f"{name}: {fn}() is {getattr(lib, fn)()} in C but "
+                    f"{LIBRARY_CONSTANTS[fn]} in build.py"
                 )
         _LIBS[name] = lib
         return lib

@@ -10,14 +10,16 @@
 // one compiled program.  Here one grid plays both roles:
 //
 //   blocks 0 .. n_rows-1   one population row each: the strided row loop and
-//                          warp-shuffle sum of K1 / K2 (`fitness_row`);
+//                          warp-shuffle sum of K1 / K2's first design
+//                          (`fitness_row`);
 //   blocks n_rows ..       256 chains each, one thread per chain: the delta
 //                          sum of K3 / K4's first design (`sa_delta_row`).
 //
 // Both bodies come from binpack_rows.cuh and cost a slot with kind_cost's
 // exact integer arithmetic, so K5's results are the separate kernels'
-// results bit for bit (K3 / K4 now sum a row over a group of lanes, which
-// cannot change an integer sum).  The mode tables
+// results bit for bit (K1 / K2 now divide by magic numbers and sum a row
+// over 1024 threads, K3 / K4 over a group of lanes; neither can change an
+// integer result).  The mode tables
 // are one by-value `KindTables` argument shared by both roles (a portfolio's
 // islands share one problem).
 //

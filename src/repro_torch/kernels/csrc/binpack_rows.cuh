@@ -1,15 +1,17 @@
-// Row bodies of the bin-packing kernels K1, K2 and K5, so the fitness and
-// fused portfolio kernels run the same code:
+// Row bodies of the fused portfolio kernel K5 (binpack_portfolio_step.cu),
+// the first designs of K1 / K2 and K3 / K4:
 //
-//   fitness_row   one block sums one population row's bin costs (K1 / K2,
-//                 and the GA role of K5);
+//   fitness_row   one block sums one population row's bin costs (the GA
+//                 role of K5);
 //   sa_delta_row  one thread sums one chain row's cost(new) - cost(old)
 //                 over its touched slots (the SA role of K5).
 //
-// K3 / K4 have their own lane-parallel row body in binpack_sa_step.cu (a
-// group of lanes per chain row, the mode loop unrolled, the tables in
-// shared memory); it computes what sa_delta_row computes, and K5's SA role
-// can take it when K5 is redesigned.
+// K1 / K2 have their own body in binpack_fitness.cu since their redesign (a
+// 1024-thread block per population row, divisions by magic numbers, the
+// mode loop unrolled, the tables in shared memory), and K3 / K4 theirs in
+// binpack_sa_step.cu (a group of lanes per chain row).  Each computes what
+// the body here computes, exactly, and K5 can take both when it is
+// redesigned.
 //
 // Both are exact: int32 inputs, unsigned 32-bit ceil-divisions and 64-bit
 // products and sums (kind_tables.cuh).

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1-K5 on a card, exactly equal to their plain
-PyTorch versions on the same card tensors (K3 / K4 also at the edges of
-their lane groups), the SA ops layer staging through a pinned buffer, and
+PyTorch versions on the same card tensors (K1 / K2 also at the edges of
+their row blocks, K3 / K4 at the edges of their lane groups), the
+fitness and SA ops layers staging through one pinned buffer, and
 the island portfolio's fused barriers through K5 equal to the host
 backend; K6 within float32 rounding of its plain version, and the memory
 planner on the card equal to the host backend.
@@ -116,6 +117,77 @@ def test_sa_kernels_match_plain_versions_at_lane_group_edges_on_card():
     assert torch.equal(sa_step_deltas_kinds_cuda(*args), sa_step_deltas_kinds_ref(*args))
     counts = kernels.launch_counts()
     assert counts["sa_step_deltas_cuda"] == counts["sa_step_deltas_kinds_cuda"] == len(shapes) + 1
+
+
+@pytest.mark.gpu
+def test_fitness_kernels_match_plain_versions_at_row_block_edges_on_card():
+    """K1 / K2's row block (1024 threads, 4 slots a thread in each 4096-slot
+    pass, looping past one pass) at the row lengths where its cover of a row
+    changes, by population sizes around the GA's 75, the int32 extremes (the
+    magic-number division, the 64-bit product path, kinds outside the
+    table) included: max |kernel - plain| = 0, one launch per case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.build import FITNESS_CHUNK as chunk, FITNESS_THREADS as threads
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    edge_nb = (1, threads - 1, threads, threads + 1, chunk - 1, chunk, chunk + 1,
+               2 * chunk + 1, 2253)
+    shapes = [(p, nb) for p in (1, 75, 77, 300) for nb in edge_nb]
+    kernels.reset_launch_counts()
+    for shape in shapes:
+        w, h, k = _planes(rng, shape, dev)
+        assert int((binpack_fitness_cuda(w, h, BRAM18_MODES)
+                    - binpack_fitness_ref(w, h, BRAM18_MODES).sum(1)).abs().max()) == 0
+        assert int((binpack_fitness_kinds_cuda(w, h, k, U50_TABLES)
+                    - binpack_fitness_kinds_ref(w, h, k, U50_TABLES).sum(1)).abs().max()) == 0
+    for nb in (threads + 1, chunk + 1):
+        w = rng.integers(2**31 - 1000, 2**31, (5, nb)).astype(np.int32)
+        w[:, ::3] = rng.integers(1, 70_000, (5, (nb + 2) // 3))
+        h = rng.integers(0, 2**31, (5, nb)).astype(np.int32)
+        k = rng.integers(-1, 6, (5, nb)).astype(np.int32)
+        w, h, k = (torch.from_numpy(x).to(dev) for x in (w, h, k))
+        modes_big = ((1, 1), (2**31 - 1, 7), (3, 2**31 - 1))
+        kt_big = ((1, modes_big), (5, ((2**31 - 1, 2**31 - 1),)))
+        assert torch.equal(binpack_fitness_cuda(w, h, modes_big),
+                           binpack_fitness_ref(w, h, modes_big).sum(1))
+        assert torch.equal(binpack_fitness_kinds_cuda(w, h, k, kt_big),
+                           binpack_fitness_kinds_ref(w, h, k, kt_big).sum(1))
+    counts = kernels.launch_counts()
+    assert counts["binpack_fitness_cuda"] == counts["binpack_fitness_kinds_cuda"] == len(shapes) + 2
+
+
+@pytest.mark.gpu
+def test_fitness_ops_stage_through_one_pinned_buffer_on_card(monkeypatch):
+    """A fitness ops call on the card takes exactly one host buffer, pinned,
+    holding every plane (one host->device copy); the totals come back equal
+    to the plain version's on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import staging
+    from repro_torch.kernels.binpack_fitness import population_costs
+
+    taken = []
+    inner = staging.host_buffer
+
+    def spy(shape, dtype, device):
+        buf = inner(shape, dtype, device)
+        taken.append(buf)
+        return buf
+
+    monkeypatch.setattr(staging, "host_buffer", spy)
+    rng = np.random.default_rng(7)
+    for shape in [(75, 2253), (1, 1), (2, 75, 513)]:
+        w, h, k = (x.numpy() for x in _planes(rng, shape, "cpu"))
+        for kw, n_planes in (({}, 2), (dict(kinds=k, kind_tables=U50_TABLES), 3)):
+            want = population_costs(w, h, backend="torch", device="cpu", **kw)
+            taken.clear()
+            got = population_costs(w, h, backend="cuda", device="cuda", **kw)
+            assert np.array_equal(got, want) and got.shape == shape[:-1]
+            assert len(taken) == 1 and taken[0].is_pinned()
+            rows = int(np.prod(shape[:-1]))
+            assert tuple(taken[0].shape) == (n_planes, rows, shape[-1])
 
 
 @pytest.mark.gpu

@@ -214,7 +214,6 @@ def test_load_builds_each_library_once_across_threads(tmp_path, monkeypatch):
     yet at the same moment: each source is compiled by one nvcc and every
     thread gets the one loaded library.  A stand-in compiler (which records
     each call) and a stand-in ``ctypes.CDLL`` replace the card's toolchain."""
-    import ctypes
     import sys
     import threading
 
@@ -237,8 +236,8 @@ def test_load_builds_each_library_once_across_threads(tmp_path, monkeypatch):
             self.path = path
 
         def __getattr__(self, fn):
-            def entry():
-                return ctypes.sizeof(build_mod.KindTables)
+            def entry():  # what the loader checks: each library's constants
+                return build_mod.LIBRARY_CONSTANTS.get(fn, 0)
             setattr(self, fn, entry)
             return entry
 
