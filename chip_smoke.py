@@ -7,7 +7,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit,
 no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and, beside
+   them, ``tools/fitness_design_probe.cu`` (K5 as it was before its
+   redesign and K3 / K4 before the shared slot cost, for the timings), one
+   nvcc each, all started together (timed);
 3. hold each kernel (K1-K5) against its plain PyTorch version on the card,
    exactly equal: the main paths' own inputs (the RN152-W1A2 GA population,
    the 64-chain SA step, the portfolio's stacked two-island population and
@@ -18,7 +21,10 @@ no result line):
    (NB of 1, the block's 1024 threads +- 1, its 4096-slot pass +- 1, two
    passes + 1 and 2253, by P of 1, 75, 77 and 300; int32 extremes and
    random tables there too); K5 also against a K1/K2 launch plus a K3/K4
-   launch on the same tensors;
+   launch on the same tensors, and at the edges of its grid (rows past one
+   and two 4096-slot passes, T > 16 and T = 0, no rows, no chains, chain
+   counts around a block's rows, 4 kinds of 8 modes, w * h past 2^32 on
+   both halves);
 4. the engines' main path at full width: ``pack`` on RN152-W1A2 and
    RN152-W1A2@U50, GA-NFD, 64-chain and single-chain SA-S, once through
    the kernels (``backend="cuda"``, launch counts reset just before each
@@ -47,12 +53,14 @@ no result line):
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
-   K5 also the separate K1 + K3 launches it replaces; for K1 / K2 also
-   K5 with no chains, the first design's row body, at the same shapes, and
-   K1 at the memory planner's own shape); K1-K4's ops call also in turns
-   with the pageable call path it replaced and with its result fetched by
-   ``.cpu()`` or through a pinned buffer and an event, and K3 / K4 at the
-   three shapes the main paths give them (64, 8 and 1 chains x 4 slots);
+   K5 also the separate K1 + K3 launches it replaces, its K1 alone at the
+   same rows, and K5 as it was before its redesign; for K1 / K2 also that
+   old K5 with no chains, the first design's row body, at the same shapes,
+   and K1 at the memory planner's own shape); K1-K5's ops call also in
+   turns with the pageable call path it replaced, K1-K4's with its result
+   fetched by ``.cpu()`` or through a pinned buffer and an event, and K3 /
+   K4 at the three shapes the main paths give them (64, 8 and 1 chains x 4
+   slots) in turns with their body before the shared slot cost;
    every kernel's launch floor (its wrapper at the smallest legal
    all-empty input, in the same graph harness); then each engine's
    generation / step loop alone (set-up excluded), ``python`` and ``cuda``
@@ -62,7 +70,9 @@ no result line):
 8. one cuda loop of each engine, and one cuda portfolio run on each
    problem, under ``torch.profiler``: the device's busy share, its time
    in kernels and in copies, and the host<->device copies per step and per
-   kernel launch (the staged ops layers make one each way per call).
+   kernel launch (the staged ops layers make one each way per call); and 30
+   fused ops calls per problem under it, which must show one host->device
+   copy, one K5 launch and one device->host copy per call, in that order.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and ``nvcc``; imports
@@ -372,6 +382,42 @@ def check_kernels(inputs, device) -> dict:
         nw, nh, nk = random_planes(rng, (c, t), n_kinds=2)
         k5(w, h, ow, oh, nw, nh, BRAM18_MODES, f"ragged {(a, p, nb)} + {(c, t)}")
         k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt_u50, f"ragged U50 {(a, p, nb)} + {(c, t)}")
+    # the edges of K5's grid (1024-thread blocks: the GA rows first, a block
+    # each, then blocks of 1024 >> log2(L) chain rows, L lanes a row): a row
+    # past one and two 4096-slot passes, T > 16 (the lane loop runs) and T
+    # = 0, no rows, no chains, neither, chain counts around a block's rows;
+    # on 4 kinds of 8 modes (with kinds one past the table: cost 0), and
+    # on the U50 tables with w * h around and past 2^32 (slot_units' 64-bit
+    # path) on both halves
+    def full_tables(r):
+        return tuple((int(r.integers(1, 32)),
+                      tuple((int(r.integers(1, 96)), int(r.integers(1, 40_000)))
+                            for _ in range(8))) for _ in range(4))
+
+    for (rows, nb), (c, t) in [((3, 4097), (8, 4)), ((2, 9000), (5, 20)), ((1, 8193), (40, 33)),
+                               ((0, 2253), (8, 4)), ((150, 2253), (0, 4)), ((0, 1), (0, 1)),
+                               ((4, 300), (128, 4)), ((4, 300), (129, 4)), ((5, 33), (513, 1)),
+                               ((1, 64), (1025, 0)), ((2, 100), (33, 17)), ((150, 2253), (8, 4))]:
+        kt4 = full_tables(rng)
+        w, h, k = random_planes(rng, (rows, nb), n_kinds=5)
+        ow, oh, ok = random_planes(rng, (c, t), n_kinds=5)
+        nw, nh, nk = random_planes(rng, (c, t), n_kinds=5)
+        label = f"grid edge {(rows, nb)} + {(c, t)}"
+        k5(w, h, ow, oh, nw, nh, kt4[0][1], label + " 8 modes")
+        k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt4, label + " 4 kinds x 8 modes")
+    for (rows, nb), (c, t) in [((3, 5000), (16, 6)), ((150, 2253), (8, 4))]:
+        w, h, k = random_planes(rng, (rows, nb), n_kinds=2)
+        ow, oh, ok = random_planes(rng, (c, t), n_kinds=2)
+        nw, nh, nk = random_planes(rng, (c, t), n_kinds=2)
+        for x in (w, h, ow, oh, nw, nh):  # live slots of 2^15 .. 2^20 by 2^15 .. 2^20
+            live = x > 0
+            x[live] = rng.integers(2**15, 2**20, int(live.sum()))
+        big = int((w.astype(np.int64) * h >= 2**32).sum())
+        if not 0 < big < w.size:
+            raise AssertionError(f"w * h >= 2^32 case: {big} of {w.size} slots past 2^32")
+        label = f"w * h past 2^32 {(rows, nb)} + {(c, t)}"
+        k5(w, h, ow, oh, nw, nh, BRAM18_MODES, label)
+        k5k(w, h, k, ow, oh, ok, nw, nh, nk, kt_u50, label + " U50")
     # the edges of K3 / K4's lane groups (L = min(32, next power of two >= 2T)
     # lanes per chain row, 32 / L rows per warp): T around 2T = 16 and 32
     # lanes, C around a warp and a block's rows; and a 4 x 64 fleet as the
@@ -1124,10 +1170,13 @@ def time_host_rounds(fns: dict, rounds: int = 12, n: int = 50) -> dict:
     return {k: statistics.median(v) for k, v in per.items()}
 
 
-def kernel_timings(inputs, device, planner_k1) -> dict:
+def kernel_timings(inputs, device, planner_k1, probe_lib) -> dict:
     """Every K1-K5 at its main-path shape (see the `[timing]` lines);
     ``planner_k1`` is one (W, H, modes) input of K1 at the memory planner's
-    most common shape."""
+    most common shape; ``probe_lib`` the loaded
+    ``tools/fitness_design_probe.cu``, whose copy of K5 as it was before its
+    redesign (both roles) is timed beside K1 / K2 (with no chains) and K5."""
+    import fitness_design_probe as probe
     import numpy as np
     import torch
 
@@ -1186,7 +1235,28 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
 
     k3_work = sa_step_work(hom["req"], ((1, BRAM18_MODES),))
     k4_work = sa_step_work(het["req"], kt)
-    z4 = torch.zeros((0, 4), dtype=torch.int32, device=device)  # K5 with no chains
+    z4 = torch.zeros((0, 4), dtype=torch.int32, device=device)
+    no_chains = (z4,) * 6
+
+    def first_design(w, h, k, step, kt):
+        """K5 as it was before its redesign (`tools/fitness_design_probe.cu`):
+        with no chains, K1 / K2's first design."""
+        return probe.k5_launch(probe_lib.probe_old_k5_launch, w, h, k, step, kt, True)
+
+    one_kind = ((1, BRAM18_MODES),)
+    zk = torch.zeros_like(p_hom[0])  # the old K5's step with (unread) kind lanes
+    p_hom_step = (p_hom[0], p_hom[1], zk, p_hom[2], p_hom[3], zk)
+
+    def pageable_k5(wrapper, pop, step, tables):
+        """The fused ops call before staging: each host plane copied from pageable
+        memory on its own, the wrapper, each half back with its own
+        `.cpu()`."""
+        nb, t = np.shape(pop[0])[-1], np.shape(step[0])[-1]
+        planes = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32).reshape(-1, w))
+                  .to(device) for x, w in [(x, nb) for x in pop] + [(x, t) for x in step]]
+        totals, deltas = wrapper(*planes, tables)
+        return (totals.cpu().numpy().astype(np.float64).reshape(np.shape(pop[0])[:-1]),
+                deltas.cpu().numpy())
 
     def pageable(wrapper, arrays, *tables):
         """PR 14's fitness ops call: each host plane copied from pageable
@@ -1211,10 +1281,11 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
             wrapper=lambda *planes: binpack_fitness_cuda(*planes, BRAM18_MODES),
             staged_host=(hom["W"], hom["H"]),
             pageable=lambda: pageable(binpack_fitness_cuda, (hom["W"], hom["H"]), BRAM18_MODES),
-            # the first design's row body at the same shape: K5 with no chains
-            old=lambda: portfolio_step_cuda(W, H, z4, z4, z4, z4, BRAM18_MODES),
+            # the first design's row body at the same shape: K5 as it was
+            # before its redesign, with no chains
+            old=lambda: first_design(W, H, None, no_chains, one_kind)[0],
             # the wrapper's by-value table: PR 14 built it on every call
-            tables=(lambda: build.kind_tables_struct(((1, BRAM18_MODES),)),
+            tables=(lambda: probe.kind_tables_struct(((1, BRAM18_MODES),)),
                     lambda: build.fitness_modes_struct(BRAM18_MODES)),
             bytes=4 * W.numel() + 4 * live(W) + 8 * W.shape[0],
             ops_count=4 * n_modes_hom * live(W),
@@ -1231,8 +1302,8 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
             staged_host=(het["W"], het["H"], het["K"]),
             pageable=lambda: pageable(binpack_fitness_kinds_cuda,
                                       (het["W"], het["H"], het["K"]), kt),
-            old=lambda: portfolio_step_kinds_cuda(Wk, Hk, Kk, z4, z4, z4, z4, z4, z4, kt),
-            tables=(lambda: build.kind_tables_struct(kt),
+            old=lambda: first_design(Wk, Hk, Kk, no_chains, kt)[0],
+            tables=(lambda: probe.kind_tables_struct(kt),
                     lambda: build.fitness_tables_struct(kt)),
             bytes=4 * Wk.numel() + 8 * live(Wk) + 8 * Wk.shape[0],
             ops_count=4 * sum(len(m) * int(((Wk > 0) & (Kk == i)).sum())
@@ -1281,10 +1352,16 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
             plain=lambda: portfolio_step_ref(W2, H2, *p_hom, BRAM18_MODES),
             ops=lambda: portfolio_step(hom["W2"], hom["H2"], *hom["req8"][:4],
                                        backend="cuda", device=device),
-            # what one fused launch replaces: a K1 launch and a K3 launch
+            # what one fused launch replaces: a K1 launch and a K3 launch;
+            # K1 alone at the same rows; K5 as it was before its redesign
             separate=lambda: (binpack_fitness_cuda(W2, H2, BRAM18_MODES),
                               sa_step_deltas_cuda(*p_hom, BRAM18_MODES)),
+            alone=lambda: binpack_fitness_cuda(W2, H2, BRAM18_MODES),
+            old=lambda: first_design(W2, H2, None, p_hom_step, one_kind),
             host=(hom["W2"], hom["H2"], *hom["req8"][:4]),
+            groups=((hom["W2"], hom["H2"]), hom["req8"][:4]),
+            pageable=lambda: pageable_k5(portfolio_step_cuda, (hom["W2"], hom["H2"]),
+                                         hom["req8"][:4], BRAM18_MODES),
             bytes=4 * W2.numel() + 4 * live(W2) + 8 * W2.shape[0]
             + sa_bytes(p_hom[0], p_hom[2], 4),
             ops_count=4 * n_modes_hom * (live(W2) + live(p_hom[0]) + live(p_hom[2])),
@@ -1299,7 +1376,15 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
                                        kind_tables=kt),
             separate=lambda: (binpack_fitness_kinds_cuda(Wk2, Hk2, Kk2, kt),
                               sa_step_deltas_kinds_cuda(*p_het_args, kt)),
+            alone=lambda: binpack_fitness_kinds_cuda(Wk2, Hk2, Kk2, kt),
+            old=lambda: first_design(Wk2, Hk2, Kk2, p_het_args, kt),
             host=(het["W2"], het["H2"], het["K2"], *het["req8"]),
+            groups=((het["W2"], het["H2"], het["K2"]),
+                    tuple(het["req8"][i] for i in (0, 1, 4, 2, 3, 5))),
+            pageable=lambda: pageable_k5(portfolio_step_kinds_cuda,
+                                         (het["W2"], het["H2"], het["K2"]),
+                                         tuple(het["req8"][i] for i in (0, 1, 4, 2, 3, 5)),
+                                         kt),
             bytes=4 * Wk2.numel() + 8 * live(Wk2) + 8 * Wk2.shape[0]
             + sa_bytes(pw, pnw, 8),
             ops_count=kind_ops(((Wk2, Kk2), (pw, pok), (pnw, pnk))),
@@ -1327,10 +1412,11 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
         p1 = time_events(c["plain"], 200)
         p2 = time_events(c["plain"], 200)
         k2 = time_graph(c["kernel"], 200)
-        # the ops layer's copies on their own, as it makes them: K3 / K4
+        # the ops layer's copies on their own, as it makes them: K1-K4
         # stage every plane into one pinned buffer and copy it once
-        # (`staging`), K1, K2 and K5 copy each host plane from pageable
-        # memory; all bring the (rows,) int64 result back with `.cpu()`
+        # (`staging.stage`), K5 both halves' planes into one
+        # (`staging.stage_groups`); all bring the int64 result back with one
+        # `.cpu()` (K5 of both halves at once: timed here per half)
         host = [np.ascontiguousarray(x, dtype=np.int32) for x in c["host"]]
         res = c["kernel"]()
         res = res if isinstance(res, tuple) else (res,)  # K5 returns both halves
@@ -1342,8 +1428,8 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
             def h2d():
                 return staging.stage(host, device)
         else:
-            def h2d():
-                return [torch.from_numpy(x).to(device) for x in host]
+            def h2d(c=c):
+                return staging.stage_groups(c["groups"], device)
 
         def h2d_sync():
             h2d()
@@ -1386,12 +1472,20 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
             r = time_host_rounds({"cpu": lambda: cpu_fetch(res[0]),
                                   "pinned": lambda: pinned_fetch(res[0])})
             o.update(d2h_cpu_ms=r["cpu"], d2h_pinned_ms=r["pinned"])
+        elif "pageable" in c:
+            # K5: the staged ops call in turns with the pageable one it replaced
+            want = c["ops"]()
+            if not all(map(np.array_equal, c["pageable"](), want)):
+                raise AssertionError(f"{name}: the pageable call path disagrees with the ops call")
+            r = time_host_rounds({"ops": c["ops"], "pageable": c["pageable"]})
+            o.update(ops_turns_ms=r["ops"], ops_pageable_ms=r["pageable"])
         if "old" in c:
             # the first design's body at the same shape, in turns with two
             # more kernel samples (kernel, old, old, kernel)
             k3_ = time_graph(c["kernel"], 200)
             o["old_ms"] = min(time_graph(c["old"], 200), time_graph(c["old"], 200))
             o["ms"] = min(o["ms"], k3_, time_graph(c["kernel"], 200))
+        if "tables" in c:
             uncached, cached = c["tables"]
             o["tables_uncached_ms"] = time_host(uncached, 200)
             o["tables_cached_ms"] = time_host(cached, 200)
@@ -1401,6 +1495,8 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
             s1 = time_graph(c["separate"], 200)
             o["ms"] = min(o["ms"], time_graph(c["kernel"], 200))
             o["separate_ms"] = min(s1, time_graph(c["separate"], 200))
+            # its fitness kernel alone at the same rows
+            o["alone_ms"] = min(time_graph(c["alone"], 200), time_graph(c["alone"], 200))
         print(f"[timing] {name} {c['shape']}: kernel {o['ms']*1e3:.2f} us/launch "
               f"(graph), wrapper call {o['call_ms']*1e3:.2f} us, plain "
               f"{o['plain_ms']*1e3:.2f} us, ops layer with copies "
@@ -1410,10 +1506,17 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
               f"{o['bound_ms']*1e3:.4f} us ({o['bound_by']}: {o['bytes']} B, "
               f"{o['operations']} ops)"
               + (f"; the separate K1/K2 + K3/K4 pair it replaces "
-                 f"{o['separate_ms']*1e3:.2f} us" if "separate_ms" in o else "")
-              + (f"; the first design's row body (K5, no chains) {o['old_ms']*1e3:.2f} us; "
-                 f"the by-value table built per call {o['tables_uncached_ms']*1e3:.2f} us, "
-                 f"cached {o['tables_cached_ms']*1e3:.2f} us" if "old_ms" in o else "")
+                 f"{o['separate_ms']*1e3:.2f} us, its K1/K2 alone {o['alone_ms']*1e3:.2f} us, "
+                 f"K5 before its redesign {o['old_ms']*1e3:.2f} us"
+                 if "separate_ms" in o else "")
+              + (f"; the first design's row body (K5 before its redesign, no chains) "
+                 f"{o['old_ms']*1e3:.2f} us; the by-value table built per call "
+                 f"{o['tables_uncached_ms']*1e3:.2f} us, cached "
+                 f"{o['tables_cached_ms']*1e3:.2f} us" if "tables_cached_ms" in o else "")
+              + (f"; in turns (medians of 12 rounds): ops layer staged "
+                 f"{o['ops_turns_ms']*1e3:.2f} us, the pageable call path (a copy per "
+                 f"plane, a `.cpu()` per half) {o['ops_pageable_ms']*1e3:.2f} us"
+                 if "ops_turns_ms" in o and "ops_cpu_fetch_ms" not in o else "")
               + (f"; in turns (medians of 12 rounds): ops layer staged "
                  f"{o['ops_turns_ms']*1e3:.2f} us, the pageable call path (a copy per "
                  f"plane, `.cpu()` back) {o['ops_pageable_ms']*1e3:.2f} us, staged with "
@@ -1421,14 +1524,14 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
                  f"fetch and an event {o['ops_pinned_fetch_ms']*1e3:.2f} us; the fetch "
                  f"alone by `.cpu()` {o['d2h_cpu_ms']*1e3:.2f} us / pinned + event "
                  f"{o['d2h_pinned_ms']*1e3:.2f} us"
-                 if "ops_turns_ms" in o else ""))
+                 if "ops_cpu_fetch_ms" in o else ""))
 
     # K1 at the memory planner's own shape, on one of its inputs, beside
     # the first design's body there
     pw, ph, pmodes = planner_k1
     pW, pH = dev(pw, ph)
     kern = lambda: binpack_fitness_cuda(pW, pH, pmodes)  # noqa: E731
-    old = lambda: portfolio_step_cuda(pW, pH, z4, z4, z4, z4, pmodes)  # noqa: E731
+    old = lambda: first_design(pW, pH, None, no_chains, ((1, pmodes),))[0]  # noqa: E731
     a, b, c2, d = time_graph(kern, 200), time_graph(old, 200), time_graph(old, 200), time_graph(kern, 200)
     n_bytes = 4 * pW.numel() + 4 * live(pW) + 8 * pW.shape[0]
     bound_ms, bound_by = bound_of(n_bytes, 4 * len(pmodes) * live(pW))
@@ -1437,18 +1540,22 @@ def kernel_timings(inputs, device, planner_k1) -> dict:
         bound_by=bound_by, bytes=n_bytes, modes=len(pmodes))
     print(f"[timing] binpack_fitness_cuda at the memory planner's shape {o['shape']} "
           f"({o['modes']} modes): kernel {o['ms']*1e3:.2f} us/launch (graph), the first "
-          f"design's row body (K5, no chains) {o['old_ms']*1e3:.2f} us, bound "
+          f"design's row body (K5 before its redesign, no chains) {o['old_ms']*1e3:.2f} us, "
+          f"bound "
           f"{bound_ms*1e3:.4f} us ({bound_by}: {n_bytes} B)")
     return out
 
 
-def sa_shape_timings(inputs, device) -> dict:
+def sa_shape_timings(inputs, device, probe_lib) -> dict:
     """K3 and K4 at the three shapes the main paths give them: the 64-chain
     fleet's step (SA-S x64), the portfolio's 8-chain fleet step and one
     chain's step (SA-S x1, the first row of the 64-chain request).  Per
-    shape: device time per launch (CUDA graph, kernel / plain / plain /
-    kernel), the ops layer per call with its staged copies (the median of six
-    rounds), and the bound."""
+    shape: device time per launch (CUDA graph) of the kernel and of K3 / K4
+    as they were before the shared slot cost (``probe_lib``'s
+    `KindTables` kernels, exact first), in turns with the plain version
+    (kernel / before / plain / plain / before / kernel), the ops layer per
+    call with its staged copies (the median of six rounds), and the bound."""
+    import fitness_design_probe as probe
     import numpy as np
     import torch
 
@@ -1475,32 +1582,42 @@ def sa_shape_timings(inputs, device) -> dict:
             "sa_step_deltas_cuda": dict(
                 kernel=lambda: sa_step_deltas_cuda(ow, oh, nw, nh, BRAM18_MODES),
                 plain=lambda: sa_step_deltas_ref(ow, oh, nw, nh, BRAM18_MODES),
+                old=lambda: probe.old_k34(probe_lib, (ow, oh, None, nw, nh, None),
+                                          ((1, BRAM18_MODES),)),
                 ops=lambda: sa_step_deltas(*rh[:4], backend="cuda", device=device),
                 work=sa_step_work(tuple(rh[:4]) + (None, None), ((1, BRAM18_MODES),)),
             ),
             "sa_step_deltas_kinds_cuda": dict(
                 kernel=lambda: sa_step_deltas_kinds_cuda(kow, koh, kok, knw, knh, knk, kt),
                 plain=lambda: sa_step_deltas_kinds_ref(kow, koh, kok, knw, knh, knk, kt),
+                old=lambda: probe.old_k34(probe_lib, (kow, koh, kok, knw, knh, knk), kt),
                 ops=lambda: sa_step_deltas(*rk[:4], backend="cuda", device=device,
                                            old_k=rk[4], new_k=rk[5], kind_tables=kt),
                 work=sa_step_work(rk, kt),
             ),
         }
         for name, c in cases.items():
+            if not torch.equal(c["old"](), c["plain"]()):
+                raise AssertionError(f"{name} {label}: the design before the shared slot "
+                                     "cost differs from the plain version")
             k1 = time_graph(c["kernel"], 200)
+            o1 = time_graph(c["old"], 200)
             p1 = time_events(c["plain"], 200)
             p2 = time_events(c["plain"], 200)
+            o2 = time_graph(c["old"], 200)
             k2 = time_graph(c["kernel"], 200)
             n_bytes, n_ops = c["work"]
             bound_ms, bound_by = bound_of(n_bytes, n_ops)
             out[name][label] = o = dict(
-                shape=tuple(np.shape(rh[0])), ms=min(k1, k2), plain_ms=min(p1, p2),
+                shape=tuple(np.shape(rh[0])), ms=min(k1, k2), old_ms=min(o1, o2),
+                plain_ms=min(p1, p2),
                 ops_ms=time_host_rounds({"ops": c["ops"]}, rounds=6)["ops"],
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes=n_bytes, operations=n_ops,
             )
             print(f"[sa-timing] {name} {label} {o['shape']}: kernel {o['ms']*1e3:.2f} "
-                  f"us/launch (graph), plain {o['plain_ms']*1e3:.2f} us, ops layer with "
+                  f"us/launch (graph), before the shared slot cost {o['old_ms']*1e3:.2f} "
+                  f"us, plain {o['plain_ms']*1e3:.2f} us, ops layer with "
                   f"staged copies {o['ops_ms']*1e3:.2f} us, bound {bound_ms*1e3:.4f} us "
                   f"({bound_by}: {n_bytes} B, {n_ops} ops)")
     return out
@@ -1760,7 +1877,66 @@ def profile_loops(device) -> dict:
         key = f"portfolio {PROBLEM}{'@' + dev if dev else ''}"
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             r, wall, _ = portfolio_run(dev, "cuda", device)
-        out[key] = device_share(prof, wall * 1e6, key, f"{r.params['barriers']} barriers")
+        out[key] = o = device_share(prof, wall * 1e6, key, f"{r.params['barriers']} barriers")
+        if "HtoD_n" in o:
+            # every ops call, fused or not, stages one copy in and launches one kernel
+            o["h2d_per_launch"] = o["HtoD_n"] / max(o["kernel_n"], 1)
+            print(f"[profile] {key}: {o['h2d_per_launch']:.3f} host->device copies per "
+                  f"recorded kernel launch ({o['kernel_n']})")
+    return out
+
+
+def profile_fused_calls(inputs, device, n: int = 30) -> dict:
+    """``n`` fused ops calls (`portfolio_step`, backend cuda) on the
+    portfolio's main-path inputs, each problem, under ``torch.profiler``:
+    the host->device and device->host copies per recorded K5 launch (the
+    staged ops layer makes one each way per call).  The profiler drops the
+    first calls' device events, so the count starts at the first recorded
+    call whose copy in, K5 launch and copy out are all there; from there the
+    device's events, in time order, must be exactly (HtoD, K5, DtoH) once a
+    call, for at least half the calls, or this raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.binpack_portfolio_step import portfolio_step
+
+    out = {}
+    for dev in (None, DEVICE_U50):
+        d = inputs[dev]
+        kw = {} if dev is None else dict(kinds=d["K2"], old_k=d["req8"][4],
+                                         new_k=d["req8"][5], kind_tables=d["prob"].kind_tables)
+
+        def call():
+            return portfolio_step(d["W2"], d["H2"], *d["req8"][:4], backend="cuda",
+                                  device=device, **kw)
+
+        for _ in range(5):
+            call()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+        seq = []
+        for e in sorted((e for e in prof.events()
+                         if "CUDA" in str(getattr(e, "device_type", ""))),
+                        key=lambda e: e.time_range.start):
+            seq.append("HtoD" if "HtoD" in e.name else "DtoH" if "DtoH" in e.name
+                       else "K5" if "portfolio_step_kernel" in e.name else e.name)
+        triple = ["HtoD", "K5", "DtoH"]
+        start = next((i for i in range(len(seq)) if seq[i:i + 3] == triple), len(seq))
+        window = seq[start:]
+        n_k5 = len(window) // 3
+        key = f"fused ops call {PROBLEM}{'@' + dev if dev else ''}"
+        out[key] = o = dict(calls=n, recorded_events=len(seq), dropped_lead=start,
+                            k5_n=n_k5, HtoD_n=window.count("HtoD"),
+                            DtoH_n=window.count("DtoH"))
+        if window != triple * n_k5 or n_k5 < n // 2:
+            raise AssertionError(
+                f"{key}: the device's events from the first whole call are not one "
+                f"(HtoD, K5, DtoH) per call for at least {n // 2} calls: {seq}")
+        o.update(h2d_per_k5=o["HtoD_n"] / n_k5, d2h_per_k5=o["DtoH_n"] / n_k5)
+        print(f"[profile] {key}, {n} calls: {o['h2d_per_k5']:.3f} host->device and "
+              f"{o['d2h_per_k5']:.3f} device->host copies per recorded K5 launch "
+              f"({n_k5} whole calls recorded in order, after {start} leading events of "
+              f"calls the profiler recorded in part; no other device event)")
     return out
 
 
@@ -1810,10 +1986,17 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
+    # tools/fitness_design_probe.cu (K5 as it was before its redesign, timed
+    # beside K1 / K2 / K5) is compiled beside the port's sources, one nvcc each
+    sys.path.insert(0, str(ROOT / "tools"))
+    import fitness_design_probe as probe
+
     t = time.perf_counter()
+    probe_build = probe.start_build()
     reports = build.build()
-    print(f"[build] {len(reports)} libraries in {time.perf_counter() - t:.1f}s -> "
-          f"{build.BUILD_DIR}")
+    probe_lib = probe.finish_build(probe_build)
+    print(f"[build] {len(reports)} libraries and the probe in {time.perf_counter() - t:.1f}s "
+          f"-> {build.BUILD_DIR}")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -1825,12 +2008,13 @@ def main() -> int:
     portfolio = portfolio_runs(device)
     memory = memory_path(device)
     torch.cuda.empty_cache()  # the 6.6 GB tree is gone; later timings start clean
-    timings = kernel_timings(inputs, device, memory["k1_input"])
-    sa_shapes = sa_shape_timings(inputs, device)
+    timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
+    sa_shapes = sa_shape_timings(inputs, device, probe_lib)
     floors = floor_timings(device)
     loops = loop_breakdown(device)
     portfolio_timing(portfolio["runs"], device)
     profiled = profile_loops(device)
+    profiled.update(profile_fused_calls(inputs, device))
 
     record = []
     for name, (source, replaces) in KERNELS.items():
@@ -1864,7 +2048,7 @@ def main() -> int:
                                   "old_ms", "tables_uncached_ms", "tables_cached_ms",
                                   "planner")
                if k in tm},
-            **({"separate_ms": tm["separate_ms"]} if "separate_ms" in tm else {}),
+            **{k: tm[k] for k in ("separate_ms", "alone_ms") if k in tm},
             **({"shapes": sa_shapes[name]} if name in sa_shapes else {}),
         ))
     print(f"[loops] {json.dumps(loops)}")

@@ -50,5 +50,6 @@ from .problem import (  # noqa: F401
     buffers_from_shape_rows,
     encode_problem_batch,
     greedy_assign_kinds,
+    register_ram_kind,
 )
 from .sa import SimulatedAnnealingPacker  # noqa: F401

@@ -132,6 +132,14 @@ RAM_KINDS: dict[str, RAMKind] = {
 }
 
 
+def register_ram_kind(kind: RAMKind) -> RAMKind:
+    """Add a custom primitive to the registry (returns it for chaining)."""
+    if not kind.modes or kind.capacity_bits <= 0:
+        raise ValueError(f"RAMKind {kind.name!r} needs modes and capacity")
+    RAM_KINDS[kind.name] = kind
+    return kind
+
+
 @dataclasses.dataclass(frozen=True)
 
 
@@ -156,6 +164,14 @@ class OCMInventory:
         if len({k.name for k in self.kinds}) != len(self.kinds):
             raise ValueError("duplicate RAM kind in inventory")
 
+    @classmethod
+    def from_counts(cls, name: str = "", **counts: int) -> "OCMInventory":
+        """Build from registry names, e.g. ``from_counts("ZU7EV", BRAM18=624,
+        URAM288=96)``.  Keyword order fixes the kind-lane indices (kind 0
+        first)."""
+        kinds = tuple(RAM_KINDS[n] for n in counts)
+        return cls(kinds=kinds, counts=tuple(counts.values()), name=name)
+
     @property
     def unit_bits(self) -> int:
         return reduce(math.gcd, (k.capacity_bits for k in self.kinds))
@@ -164,6 +180,18 @@ class OCMInventory:
     def weights(self) -> tuple[int, ...]:
         u = self.unit_bits
         return tuple(k.capacity_bits // u for k in self.kinds)
+
+    def kind_index(self, name: str) -> int:
+        for i, k in enumerate(self.kinds):
+            if k.name == name:
+                return i
+        raise KeyError(f"no RAM kind {name!r} in inventory {self.name!r}")
+
+    def capacity_units(self) -> int | None:
+        """Total bounded capacity in cost units (None if any kind unbounded)."""
+        if any(c < 0 for c in self.counts):
+            return None
+        return sum(c * w for c, w in zip(self.counts, self.weights))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,6 +364,23 @@ class PackingProblem:
     def bin_primitives(self, width: int, height: int, kind: int = 0) -> int:
         """Raw primitive count of the bin on the given RAM kind."""
         return self._cost_mode_gap(width, height, kind)[3]
+
+    def bin_mode(self, width: int, height: int, kind: int = 0) -> tuple[int, int]:
+        """The (mode_width, mode_depth) minimizing primitive count."""
+        m = self._cost_mode_gap(width, height, kind)[1]
+        return self._kind_modes_py[kind][m]
+
+    def grid_gap(self, width: int, height: int, kind: int = 0) -> int:
+        """Unused depth rows on the RAM grid under the best mode (NFD's gap)."""
+        return self._cost_mode_gap(width, height, kind)[2]
+
+    def best_kind(self, width: int, height: int) -> int:
+        """The kind with minimal unit cost for this geometry (ties: lowest)."""
+        if self.n_kinds == 1:
+            return 0
+        return min(
+            range(self.n_kinds), key=lambda k: self._cost_mode_gap(width, height, k)[0]
+        )
 
     def overflow_units(self, used: np.ndarray) -> np.ndarray:
         """Unit-weighted primitive usage beyond the inventory counts.
@@ -521,6 +566,28 @@ class Solution:
         self._any_dirty = True
         self._total_cost = None
 
+    def set_kind(self, bin_index: int, kind: int) -> None:
+        """Reassign one bin's RAM kind (cache-consistent)."""
+        self.kinds[bin_index] = kind
+        self.touch(bin_index)
+
+    def invalidate(self) -> None:
+        """Discard every cached row (after wholesale ``bins`` surgery).
+
+        If the bin count changed, the kind lane is re-aligned by truncation /
+        zero-padding — callers doing wholesale surgery own the kind values."""
+        n = len(self.bins)
+        if n != self._geom.shape[0]:
+            self._geom = np.empty((n, 6), dtype=np.int64)
+            self._dirty = np.ones(n, dtype=bool)
+            old = self.kinds
+            self.kinds = np.zeros(n, dtype=np.int64)
+            self.kinds[: min(n, len(old))] = old[: min(n, len(old))]
+        else:
+            self._dirty[:] = True
+        self._any_dirty = True
+        self._total_cost = None
+
     def drop_empty(self) -> None:
         """Remove empty bins (and their geometry/kind rows) left by moves."""
         if all(self.bins):
@@ -637,6 +704,9 @@ class Solution:
         self._refresh()
         return float(self._geom[:, _GNL].sum()) / len(self.bins)
 
+    def max_items_per_bin(self) -> int:
+        return max(len(b) for b in self.bins)
+
     # ------------------------------------------------------------ validation
     def validate(self, intra_layer: bool = False) -> None:
         """Raises if the packing is not implementable under the constraints."""
@@ -657,6 +727,13 @@ class Solution:
                 )
             if intra_layer and len({int(p.layers[i]) for i in b}) > 1:
                 raise ValueError("intra-layer constraint violated")
+
+    def is_valid(self, intra_layer: bool = False) -> bool:
+        try:
+            self.validate(intra_layer=intra_layer)
+            return True
+        except ValueError:
+            return False
 
 
 def greedy_assign_kinds(sol: Solution) -> Solution:
@@ -965,6 +1042,14 @@ class PackingResult:
     def delta_bram(self) -> float:
         """Paper Table 4's memory-footprint reduction factor."""
         return self.baseline_cost / max(self.cost, 1)
+
+    def time_to_within(self, frac: float = 0.01) -> float:
+        """Paper's convergence metric: time to reach within `frac` of best."""
+        target = self.cost * (1.0 + frac)
+        for t, c in self.trace:
+            if c <= target:
+                return t
+        return self.wall_time_s
 
     def summary(self) -> str:
         return (

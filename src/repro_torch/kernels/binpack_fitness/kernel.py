@@ -9,6 +9,11 @@ kernel (or raises); a CPU tensor, and only a CPU tensor, takes the plain
 version in ``ref.py``.  Each wrapper counts its launches in ``.launches``.
 The by-value table argument (``build.FitnessTables``: each divisor as a
 magic number and a shift) is built once per distinct table and cached.
+
+Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
+0.  A slot with ``w > 0`` and ``h < 0`` is outside it: the kernel and the
+plain version may disagree there, and no call checks for it (the engines
+never make one).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from .ref import binpack_fitness_kinds_ref, binpack_fitness_ref
 def binpack_fitness_cuda(
     widths: torch.Tensor, heights: torch.Tensor, modes
 ) -> torch.Tensor:
-    """K1: ``(P, NB)`` geometry -> ``(P,)`` int64 total cost per row."""
+    """K1: ``(P, NB)`` non-negative int32 geometry -> ``(P,)`` int64 total
+    cost per row."""
     device = check_planes("binpack_fitness", (widths, heights))
     tables = fitness_modes_struct(modes)
     if device.type == "cpu":
@@ -51,7 +57,8 @@ def binpack_fitness_kinds_cuda(
     widths: torch.Tensor, heights: torch.Tensor, kinds: torch.Tensor, kind_tables
 ) -> torch.Tensor:
     """K2: K1 with a ``(P, NB)`` int32 RAM-kind plane selecting, per bin,
-    the mode table and unit weight of ``kind_tables``."""
+    the mode table and unit weight of ``kind_tables``; geometry
+    non-negative int32."""
     device = check_planes("binpack_fitness_kinds", (widths, heights, kinds))
     tables = fitness_tables_struct(kind_tables)
     if device.type == "cpu":

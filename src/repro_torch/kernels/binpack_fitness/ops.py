@@ -14,6 +14,11 @@ back with one ``.cpu()`` copy.  Backends:
 
 Heterogeneous OCM problems pass a parallel ``kinds`` matrix plus the
 problem's ``kind_tables`` (``((weight, modes), ...)`` per RAM kind).
+
+Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
+0.  A slot with ``w > 0`` and ``h < 0`` is outside it (the backends may
+disagree there) and is not checked per call: the GA, SA and portfolio
+engines never make one (``tests/test_torch_kernel_domain.py``).
 """
 from __future__ import annotations
 
@@ -35,8 +40,8 @@ def population_costs(
     kind_tables=None,
     device="cuda",
 ) -> np.ndarray:
-    """(P, NB) host geometry -> (P,) int64 total cost per individual (host
-    numpy).
+    """(P, NB) non-negative int32 host geometry -> (P,) int64 total cost per
+    individual (host numpy).
 
     ``kinds`` (a (P, NB) int matrix of RAM-kind indices) together with
     ``kind_tables`` routes evaluation through per-kind mode tables; without

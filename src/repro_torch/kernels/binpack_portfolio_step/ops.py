@@ -10,11 +10,19 @@ touched-bin delta costs (the ``binpack_sa_step`` contract).  Backends:
 * ``"cuda"`` — the hand-written kernel K5 (``kernel.py``), one launch for
   both halves; on a CPU device its wrappers take the plain version.
 
-The engines' state is host numpy, so the torch and cuda backends copy both
-halves' planes to ``device`` and the results back.  Every backend is exact
+The engines' state is host numpy, so the torch and cuda backends move both
+halves' planes to ``device`` in ONE copy from one pinned host buffer
+(``kernels/staging.stage_groups``: the ``NB``-wide population planes and the
+``T``-wide step planes back to back) and bring both results back in ONE
+``.cpu()`` of one ``(rows + C,)`` int64 tensor.  Every backend is exact
 integer arithmetic: the totals equal ``binpack_fitness.ops.population_costs``
 and the deltas ``binpack_sa_step.ops.sa_step_deltas`` on the same inputs,
 so a fused barrier cannot change any engine trajectory.
+
+Domain: ``w, h >= 0`` (int32) on both halves; a slot with ``w == 0`` is
+empty and costs 0.  A slot with ``w > 0`` and ``h < 0`` is outside it (the
+backends may disagree there) and is not checked per call: the GA, SA and
+portfolio engines never make one (``tests/test_torch_kernel_domain.py``).
 """
 from __future__ import annotations
 
@@ -22,19 +30,11 @@ import numpy as np
 import torch
 
 from ..binpack_sa_step.ops import _bin_costs_kinds_numpy, _bin_costs_numpy
-from .kernel import portfolio_step_cuda, portfolio_step_kinds_cuda
+from ..staging import stage_groups
+from .kernel import portfolio_step_joined_cuda, portfolio_step_kinds_joined_cuda
 from .ref import portfolio_step_kinds_ref, portfolio_step_ref
 
 BACKENDS = ("python", "torch", "cuda")
-
-
-def _planes(arrays, device, width) -> list[torch.Tensor]:
-    return [
-        torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.int32).reshape(-1, width)
-        ).to(device)
-        for a in arrays
-    ]
 
 
 def portfolio_step(
@@ -53,8 +53,8 @@ def portfolio_step(
     device="cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """One fused call: ``(W, H)`` population geometry (any leading shape,
-    bins on the last axis) plus ``(R, T)`` touched-bin SA step geometry ->
-    ``(totals, deltas)``.
+    bins on the last axis) plus ``(R, T)`` touched-bin SA step geometry,
+    both non-negative int32 -> ``(totals, deltas)``.
 
     ``totals`` is float64 with ``W``'s leading shape (exact integer values,
     as the GA's batched costs); ``deltas`` is ``(R,)`` int64 (as
@@ -87,19 +87,22 @@ def portfolio_step(
             old_c = _bin_costs_numpy(old_w, old_h, modes)
         totals = per_bin.sum(axis=-1).astype(np.float64)
         return totals, np.sum(new_c - old_c, axis=-1)
-    lead, nb = tuple(np.shape(W)[:-1]), np.shape(W)[-1]
-    step_lead, t = tuple(np.shape(old_w)[:-1]), np.shape(old_w)[-1]
+    lead = tuple(np.shape(W)[:-1])
+    step_lead = tuple(np.shape(old_w)[:-1])
     if hetero:
-        pop = _planes((W, H, kinds), device, nb)
-        step = _planes((old_w, old_h, old_k, new_w, new_h, new_k), device, t)
-        fn = portfolio_step_kinds_cuda if backend == "cuda" else portfolio_step_kinds_ref
-        totals, deltas = fn(*pop, *step, kind_tables)
+        pop, step = stage_groups(
+            ((W, H, kinds), (old_w, old_h, old_k, new_w, new_h, new_k)), device
+        )
+        args = (*pop.unbind(0), *step.unbind(0), kind_tables)
+        cuda, plain = portfolio_step_kinds_joined_cuda, portfolio_step_kinds_ref
     else:
-        pop = _planes((W, H), device, nb)
-        step = _planes((old_w, old_h, new_w, new_h), device, t)
-        fn = portfolio_step_cuda if backend == "cuda" else portfolio_step_ref
-        totals, deltas = fn(*pop, *step, modes)
+        pop, step = stage_groups(((W, H), (old_w, old_h, new_w, new_h)), device)
+        args = (*pop.unbind(0), *step.unbind(0), modes)
+        cuda, plain = portfolio_step_joined_cuda, portfolio_step_ref
+    rows = pop.shape[1]
+    both = cuda(*args) if backend == "cuda" else torch.cat(plain(*args))
+    both = both.cpu().numpy()  # one copy back for both halves
     return (
-        totals.cpu().numpy().astype(np.float64).reshape(lead),
-        deltas.cpu().numpy().reshape(step_lead),
+        both[:rows].astype(np.float64).reshape(lead),
+        both[rows:].reshape(step_lead),
     )

@@ -7,6 +7,12 @@
 return the ``(C,)`` int64 per-chain deltas.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor, and only a CPU tensor, takes the plain
 version in ``ref.py``.  Each wrapper counts its launches in ``.launches``.
+
+Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
+0.  A slot with ``w > 0`` and ``h < 0`` is outside it: the kernel and the
+plain version may disagree there, and no call checks for it (the engines
+never make one).  The kernels cost slots with K1 / K2's by-value table
+(``build.FitnessTables``, built once per distinct table and cached).
 """
 from __future__ import annotations
 
@@ -15,15 +21,16 @@ import ctypes
 import torch
 
 from ..build import (
-    check_planes, count_launch, kind_tables_struct, launch, load, modes_struct,
+    check_planes, count_launch, fitness_modes_struct, fitness_tables_struct, launch, load,
 )
 from .ref import sa_step_deltas_kinds_ref, sa_step_deltas_ref
 
 
 def sa_step_deltas_cuda(old_w, old_h, new_w, new_h, modes) -> torch.Tensor:
-    """K3: four (C, T) planes -> (C,) int64 ``sum_t cost(new) - cost(old)``."""
+    """K3: four (C, T) non-negative int32 planes -> (C,) int64
+    ``sum_t cost(new) - cost(old)``."""
     device = check_planes("sa_step_deltas", (old_w, old_h, new_w, new_h))
-    tables = modes_struct(modes)
+    tables = fitness_modes_struct(modes)
     if device.type == "cpu":
         return sa_step_deltas_ref(old_w, old_h, new_w, new_h, modes)
     c, t = old_w.shape
@@ -47,11 +54,11 @@ def sa_step_deltas_kinds_cuda(
     old_w, old_h, old_k, new_w, new_h, new_k, kind_tables
 ) -> torch.Tensor:
     """K4: K3 with old/new (C, T) RAM-kind lanes selecting each slot's mode
-    table and unit weight."""
+    table and unit weight; geometry non-negative int32."""
     device = check_planes(
         "sa_step_deltas_kinds", (old_w, old_h, old_k, new_w, new_h, new_k)
     )
-    tables = kind_tables_struct(kind_tables)
+    tables = fitness_tables_struct(kind_tables)
     if device.type == "cpu":
         return sa_step_deltas_kinds_ref(
             old_w, old_h, old_k, new_w, new_h, new_k, kind_tables

@@ -22,6 +22,11 @@ single-chain engine): the reference's scalar loop draws its uniform only for
 uphill moves and compares against ``math.exp``, and per-seed bit parity pins
 that exact stream and rounding.  Fusing the compare into a float32 kernel
 would break parity for ~1-ulp boundary cases.
+
+Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
+0.  A slot with ``w > 0`` and ``h < 0`` is outside it (the backends may
+disagree there) and is not checked per call: the GA, SA and portfolio
+engines never make one (``tests/test_torch_kernel_domain.py``).
 """
 from __future__ import annotations
 
@@ -71,7 +76,8 @@ def sa_step_deltas(
     kind_tables=None,
     device="cuda",
 ) -> np.ndarray:
-    """(C, T) touched-bin geometry before/after -> (C,) int64 cost deltas.
+    """(C, T) non-negative int32 touched-bin geometry before/after -> (C,)
+    int64 cost deltas.
 
     Empty slots (w == 0) cost nothing on either side, so rows may be
     zero-padded to a common touched-bin count.  Heterogeneous problems pass

@@ -28,65 +28,36 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# must match `struct KindTables` in csrc/kind_tables.cuh
+# the tables' capacity: RT_MAX_KINDS / RT_MAX_MODES in csrc/fitness_rows.cuh
 MAX_KINDS = 4
 MAX_MODES = 8
 _I32_MAX = 2**31 - 1
 
 
-class KindTables(ctypes.Structure):
-    _fields_ = [
-        ("n_kinds", ctypes.c_int32),
-        ("n_modes", ctypes.c_int32 * MAX_KINDS),
-        ("weight", ctypes.c_int32 * MAX_KINDS),
-        ("mode_w", (ctypes.c_int32 * MAX_MODES) * MAX_KINDS),
-        ("mode_d", (ctypes.c_int32 * MAX_MODES) * MAX_KINDS),
-    ]
-
-
-# 4 + 2 * 4 * MAX_KINDS + 2 * 4 * MAX_KINDS * MAX_MODES bytes, as the
-# header's static_assert; `load` also asks each library for its sizeof
-assert ctypes.sizeof(KindTables) == 292, ctypes.sizeof(KindTables)
-
-
-def kind_tables_struct(kind_tables) -> KindTables:
-    """``((weight, ((mode_w, mode_d), ...)), ...)`` -> the by-value kernel
-    argument.  Raises if a table exceeds the struct's capacity or holds a
-    value the kernels cannot take (a zero mode divides by zero)."""
-    kind_tables = tuple(kind_tables)
+def check_kind_tables(kind_tables) -> None:
+    """Raise unless ``((weight, ((mode_w, mode_d), ...)), ...)`` fits the
+    kernels' table capacity and holds only values they can take (a zero mode
+    divides by zero)."""
     if not 1 <= len(kind_tables) <= MAX_KINDS:
         raise ValueError(
             f"{len(kind_tables)} RAM kinds; the CUDA kernels take 1..{MAX_KINDS}"
         )
-    t = KindTables()
-    t.n_kinds = len(kind_tables)
     for k, (weight, modes) in enumerate(kind_tables):
-        modes = tuple(modes)
         if not 1 <= len(modes) <= MAX_MODES:
             raise ValueError(
                 f"kind {k} has {len(modes)} modes; the CUDA kernels take "
                 f"1..{MAX_MODES}"
             )
-        if not 1 <= int(weight) <= _I32_MAX:
+        if not 1 <= weight <= _I32_MAX:
             raise ValueError(f"kind {k} weight {weight} outside 1..2**31-1")
-        t.n_modes[k] = len(modes)
-        t.weight[k] = int(weight)
         for m, (mw, md) in enumerate(modes):
-            if not (1 <= int(mw) <= _I32_MAX and 1 <= int(md) <= _I32_MAX):
+            if not (1 <= mw <= _I32_MAX and 1 <= md <= _I32_MAX):
                 raise ValueError(f"kind {k} mode {m} = ({mw}, {md}) not positive int32")
-            t.mode_w[k][m] = int(mw)
-            t.mode_d[k][m] = int(md)
-    return t
 
 
-def modes_struct(modes) -> KindTables:
-    """A single mode table (the homogeneous kernels) as kind 0, weight 1."""
-    return kind_tables_struct(((1, modes),))
-
-
-# K1 / K2 (csrc/binpack_fitness.cu) take their own by-value table: every
-# (kind, mode) divisor as a magic number and a shift, so the kernel divides
-# by multiplying.  Must match `FitnessMode` / `FitnessTables` there.
+# Every kernel's by-value table (csrc/fitness_rows.cuh): every (kind, mode)
+# divisor as a magic number and a shift, so the kernels divide by
+# multiplying.  Must match `FitnessMode` / `FitnessTables` there.
 class FitnessMode(ctypes.Structure):
     _fields_ = [
         ("magic_w", ctypes.c_uint32),
@@ -106,10 +77,30 @@ class FitnessTables(ctypes.Structure):
 
 
 assert ctypes.sizeof(FitnessTables) == 592, ctypes.sizeof(FitnessTables)
-# K1 / K2's launch geometry, as csrc/binpack_fitness.cu fixes it: one block
+# K1 / K2's launch geometry, as csrc/fitness_rows.cuh fixes it: one block
 # of 1024 threads per row, taking the row in passes of 4096 slots
 FITNESS_THREADS = 1024
 FITNESS_CHUNK = 4096
+# K5's (csrc/binpack_portfolio_step.cu): every block has 1024 threads, GA
+# rows first (a block each), then the chain rows, each on a group of
+# `2 ** sa_lanes_log2(T)` lanes (csrc/sa_lanes.cuh), so a block holds
+# `portfolio_chain_rows(T)` of them
+PORTFOLIO_THREADS = 1024
+SA_MAX_LANES = 32
+
+
+def sa_lanes_log2(t: int) -> int:
+    """log2 of the lanes per chain row: ``min(32, next power of two >=
+    2T)``, 1 lane for ``T = 0`` (``sa_lanes_log2`` in csrc/sa_lanes.cuh)."""
+    lg = 0
+    while (1 << lg) < SA_MAX_LANES and (1 << lg) < 2 * t:
+        lg += 1
+    return lg
+
+
+def portfolio_chain_rows(t: int) -> int:
+    """Chain rows of T slots in one of K5's SA blocks."""
+    return PORTFOLIO_THREADS >> sa_lanes_log2(t)
 
 
 def ceil_div_magic(d: int) -> tuple[int, int]:
@@ -119,7 +110,7 @@ def ceil_div_magic(d: int) -> tuple[int, int]:
 
     (the kernel's ``(__umulhi(magic, 2 (x - 1)) >> shift) + 1``):
     ``shift = ceil(log2 d)``, ``magic = ceil(2**(31 + shift) / d) < 2**32``.
-    The proof is in csrc/binpack_fitness.cu.  Raises for a divisor outside
+    The proof is in csrc/fitness_rows.cuh.  Raises for a divisor outside
     ``1 .. 2**31 - 1``."""
     d = int(d)
     if not 1 <= d <= _I32_MAX:
@@ -141,7 +132,7 @@ def _frozen_tables(kind_tables) -> tuple:
 @functools.lru_cache(maxsize=64)
 def _fitness_tables(kind_tables) -> FitnessTables:
     frozen = _frozen_tables(kind_tables)
-    kind_tables_struct(frozen)  # the same limits as every kernel's tables
+    check_kind_tables(frozen)
     t = FitnessTables()
     for k, (weight, modes) in enumerate(frozen):
         t.weight[k] = weight
@@ -157,10 +148,10 @@ def _fitness_tables(kind_tables) -> FitnessTables:
 
 
 def fitness_tables_struct(kind_tables) -> FitnessTables:
-    """``((weight, ((mode_w, mode_d), ...)), ...)`` -> K1 / K2's by-value
-    kernel argument, built once per distinct table and shared (it is never
-    written after it is built, so the portfolio's lane threads may pass it
-    at once).  Raises as `kind_tables_struct` does."""
+    """``((weight, ((mode_w, mode_d), ...)), ...)`` -> the kernels'
+    by-value table argument, built once per distinct table and shared (it is
+    never written after it is built, so the portfolio's lane threads may
+    pass it at once).  Raises as `check_kind_tables` does."""
     try:
         return _fitness_tables(kind_tables)  # a table of tuples hashes as it is
     except TypeError:  # lists: cached under their tuple form
@@ -168,7 +159,7 @@ def fitness_tables_struct(kind_tables) -> FitnessTables:
 
 
 def fitness_modes_struct(modes) -> FitnessTables:
-    """K1's single mode table as kind 0, weight 1."""
+    """A single mode table (K1, K3, K5a) as kind 0, weight 1."""
     return fitness_tables_struct(((1, modes),))
 
 
@@ -240,7 +231,6 @@ def _build(names) -> dict[str, str]:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_T = ctypes.POINTER(KindTables)
 _F = ctypes.POINTER(FitnessTables)
 _SIGNATURES = {
     "binpack_fitness": {
@@ -248,13 +238,13 @@ _SIGNATURES = {
         "binpack_fitness_kinds_launch": [_P, _P, _P, _P, _I, _I, _F, _P],
     },
     "binpack_sa_step": {
-        "sa_step_deltas_launch": [_P, _P, _P, _P, _P, _I, _I, _T, _P],
-        "sa_step_deltas_kinds_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _T, _P],
+        "sa_step_deltas_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+        "sa_step_deltas_kinds_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     },
     "binpack_portfolio_step": {
-        "portfolio_step_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _T, _P],
+        "portfolio_step_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
         "portfolio_step_kinds_launch": [
-            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _T, _P,
+            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P,
         ],
     },
     "packed_gather": {
@@ -262,18 +252,20 @@ _SIGNATURES = {
     },
 }
 # Values a library reports through plain-C functions, checked at load
-# against this module's before the first launch: the by-value structs'
-# sizes and K1 / K2's launch geometry.
+# against this module's before the first launch: the by-value table's
+# size and K1 / K2's and K5's launch geometry.
 LIBRARY_CONSTANTS = {
-    "kind_tables_bytes": ctypes.sizeof(KindTables),
     "fitness_tables_bytes": ctypes.sizeof(FitnessTables),
     "fitness_threads": FITNESS_THREADS,
     "fitness_chunk_slots": FITNESS_CHUNK,
+    "portfolio_threads": PORTFOLIO_THREADS,
+    "portfolio_max_lanes": SA_MAX_LANES,
 }
 _CHECKED = {
     "binpack_fitness": ("fitness_tables_bytes", "fitness_threads", "fitness_chunk_slots"),
-    "binpack_sa_step": ("kind_tables_bytes",),
-    "binpack_portfolio_step": ("kind_tables_bytes",),
+    "binpack_sa_step": ("fitness_tables_bytes",),
+    "binpack_portfolio_step": ("fitness_tables_bytes", "portfolio_threads",
+                               "portfolio_max_lanes"),
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 

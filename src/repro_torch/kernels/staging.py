@@ -2,8 +2,9 @@
 
 The engines keep their state in host numpy, so every ops call moves a few
 small int32 planes to the device.  Each copy from pageable memory costs a
-staging pass and a synchronisation of its own, so ``stage`` packs all of a
-call's planes into ONE host buffer and moves it with one asynchronous copy.
+staging pass and a synchronisation of its own, so ``stage_groups`` packs
+all of a call's planes, of one width or several, into ONE host buffer and
+moves it with one asynchronous copy (``stage`` for planes of one shape).
 For a CUDA device the buffer comes from PyTorch's pinned caching allocator;
 for a CPU device the same code runs on an ordinary buffer (what the CPU
 tests drive).  The result comes back with one ``.cpu()``: a pinned result
@@ -28,13 +29,8 @@ def host_buffer(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor
     return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
 
 
-def stage(arrays, device) -> torch.Tensor:
-    """The host ``arrays``, all of one shape ``(..., T)``, as one ``(P, R, T)``
-    int32 tensor on ``device`` (``R`` the product of the leading axes):
-    filled into one host buffer by one ``np.concatenate``, moved with one
-    asynchronous copy.  ``out[i]`` is plane ``i``, a contiguous ``(R, T)``
-    view."""
-    device = torch.device(device)
+def _plane_shape(arrays) -> tuple[int, ...]:
+    """The one shape of a group of planes; raises on mixed shapes."""
     shape = np.shape(arrays[0])
     if not shape:
         raise ValueError("planes need at least one axis")
@@ -42,11 +38,40 @@ def stage(arrays, device) -> torch.Tensor:
         raise ValueError(
             f"planes must share one shape, got {[np.shape(x) for x in arrays]}"
         )
-    t = shape[-1]
-    rows = math.prod(shape[:-1])
-    host = host_buffer((len(arrays), rows, t), torch.int32, device)
-    # the planes lie back to back along the buffer's first axis; int32 cast
-    # as np.asarray(a, dtype=np.int32) casts
-    np.concatenate(arrays, axis=0, casting="unsafe",
-                   out=host.numpy().reshape((len(arrays) * shape[0],) + shape[1:]))
-    return host.to(device, non_blocking=True)
+    return shape
+
+
+def stage_groups(groups, device) -> tuple[torch.Tensor, ...]:
+    """Groups of host planes, each group of one shape ``(..., T_g)`` (the
+    widths may differ between groups, as the fused portfolio step's
+    ``NB``-wide population planes and ``T``-wide step planes do), as int32
+    tensors on ``device``: every plane filled into ONE flat host buffer
+    (one ``np.concatenate`` a group) and moved with ONE asynchronous copy.
+    Returns one ``(P_g, R_g, T_g)`` tensor per group (``R_g`` the product
+    of the leading axes), each a contiguous view of the one device buffer,
+    the groups back to back in the order given; plane ``i`` of a group is
+    its contiguous ``(R_g, T_g)`` slice ``i``."""
+    device = torch.device(device)
+    shapes = [_plane_shape(arrays) for arrays in groups]
+    sizes = [len(a) * math.prod(s) for a, s in zip(groups, shapes)]
+    host = host_buffer((sum(sizes),), torch.int32, device)
+    flat = host.numpy()
+    start = 0
+    for arrays, shape, size in zip(groups, shapes, sizes):
+        # the planes lie back to back along the group's first axis; int32
+        # cast as np.asarray(a, dtype=np.int32) casts
+        np.concatenate(arrays, axis=0, casting="unsafe",
+                       out=flat[start:start + size].reshape((len(arrays) * shape[0],)
+                                                             + shape[1:]))
+        start += size
+    moved = host.to(device, non_blocking=True)
+    return tuple(
+        part.view(len(arrays), math.prod(shape[:-1]), shape[-1])
+        for part, arrays, shape in zip(moved.split(sizes), groups, shapes)
+    )
+
+
+def stage(arrays, device) -> torch.Tensor:
+    """`stage_groups` for one group: the host ``arrays``, all of one shape
+    ``(..., T)``, as one ``(P, R, T)`` int32 tensor on ``device``."""
+    return stage_groups((arrays,), device)[0]

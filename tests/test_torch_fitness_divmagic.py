@@ -7,7 +7,10 @@ their neighbours, at the numerators where such a formula breaks first (0,
 1, d - 1, d, d + 1, k d +- 1, 2**31 - 1).  The kernel's whole slot cost
 (32-bit fast path and 64-bit path) is emulated the same way and held
 against the plain version; the struct builder refuses what the kernel
-cannot take.
+cannot take.  K3 / K4 and K5's SA role cost each touched slot with the
+same arithmetic (``fitness_slot_cost`` in ``csrc/fitness_rows.cuh``): its
+emulated deltas equal K3 / K4's plain version on SA step inputs with empty
+slots, zero heights and kinds past the table.
 """
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from repro_torch.core.problem import BRAM18, BRAM36, LUTRAM64, URAM288
 from repro_torch.kernels import build
 from repro_torch.kernels.binpack_fitness import binpack_fitness_kinds_ref
+from repro_torch.kernels.binpack_sa_step import sa_step_deltas_kinds_ref, sa_step_deltas_ref
 
 I32_MAX = 2**31 - 1
 U32 = np.uint64(0xFFFFFFFF)
@@ -126,6 +130,49 @@ def test_emulated_slot_cost_equals_plain_version(case):
     w, h, k = (np.asarray(a, dtype=np.int32) for a in (w, h, k))
     plain = binpack_fitness_kinds_ref(*(torch.from_numpy(a) for a in (w, h, k)), kt).numpy()
     np.testing.assert_array_equal(emulated_fitness(w, h, k, kt), plain)
+
+
+@pytest.mark.parametrize("case", ["u50", "random", "one-kind", "extremes"])
+def test_emulated_sa_role_equals_plain_deltas(case):
+    """K3 / K4 and K5's SA role, emulated: sum(cost(new)) - sum(cost(old)) over each
+    chain row's touched slots, each slot costed as the GA role costs it,
+    equals K3 / K4's plain version on the domain w, h >= 0 -- empty slots
+    (w == 0), live widths at height 0, kinds past the table's count and
+    past the struct (k < 0, k >= 4), and int32 extremes."""
+    rng = np.random.default_rng({"u50": 10, "random": 11, "one-kind": 12, "extremes": 13}[case])
+    shape = (40, 6)
+    if case == "extremes":
+        kt = ((1, ((1, 1), (I32_MAX, 7), (3, I32_MAX))), (5, ((I32_MAX, I32_MAX),)))
+        planes = [rng.integers(2**31 - 1000, 2**31, shape) if i % 2 == 0
+                  else rng.integers(0, 2**31, shape) for i in range(4)]
+    else:
+        kt = (((1, BRAM18.modes), (16, URAM288.modes)) if case == "u50" else
+              ((1, ((int(rng.integers(1, 96)), int(rng.integers(1, 40_000))),) * 3),)
+              if case == "one-kind" else
+              tuple((int(rng.integers(1, 32)),
+                     tuple((int(rng.integers(1, 96)), int(rng.integers(1, 40_000)))
+                           for _ in range(int(rng.integers(1, 9)))))
+                    for _ in range(int(rng.integers(1, 5)))))
+        planes = []
+        for _ in range(2):
+            w = rng.integers(0, 100, shape)
+            w[rng.random(shape) < 0.25] = 0
+            h = rng.integers(1, 70_000, shape)
+            h[rng.random(shape) < 0.15] = 0  # zero heights, live widths among them
+            planes += [w, h]
+    ow, oh, nw, nh = (np.asarray(a, dtype=np.int32) for a in planes)
+    ok, nk = (rng.integers(-1, 6, shape).astype(np.int32) for _ in range(2))
+    emulated = (emulated_fitness(nw, nh, nk, kt).sum(-1)
+                - emulated_fitness(ow, oh, ok, kt).sum(-1))
+    t = [torch.from_numpy(a) for a in (ow, oh, ok, nw, nh, nk)]
+    np.testing.assert_array_equal(emulated, sa_step_deltas_kinds_ref(*t, kt).numpy())
+    # without kind lanes: kind 0 of a one-kind table at weight 1
+    modes = kt[0][1]
+    zero = np.zeros(shape, dtype=np.int32)
+    emulated = (emulated_fitness(nw, nh, zero, ((1, modes),)).sum(-1)
+                - emulated_fitness(ow, oh, zero, ((1, modes),)).sum(-1))
+    np.testing.assert_array_equal(emulated, sa_step_deltas_ref(t[0], t[1], t[3], t[4],
+                                                               modes).numpy())
 
 
 def test_struct_holds_the_constants():

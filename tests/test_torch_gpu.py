@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1-K5 on a card, exactly equal to their plain
 PyTorch versions on the same card tensors (K1 / K2 also at the edges of
 their row blocks, K3 / K4 at the edges of their lane groups), the
-fitness and SA ops layers staging through one pinned buffer, and
+fitness, SA and fused ops layers staging through one pinned buffer, K5
+at the edges of its grid, and
 the island portfolio's fused barriers through K5 equal to the host
 backend; K6 within float32 rounding of its plain version, and the memory
 planner on the card equal to the host backend.
@@ -187,7 +188,7 @@ def test_fitness_ops_stage_through_one_pinned_buffer_on_card(monkeypatch):
             assert np.array_equal(got, want) and got.shape == shape[:-1]
             assert len(taken) == 1 and taken[0].is_pinned()
             rows = int(np.prod(shape[:-1]))
-            assert tuple(taken[0].shape) == (n_planes, rows, shape[-1])
+            assert taken[0].numel() == n_planes * rows * shape[-1]
 
 
 @pytest.mark.gpu
@@ -222,7 +223,7 @@ def test_sa_ops_stage_through_pinned_buffers_on_card(monkeypatch):
             assert np.array_equal(got, want) and got.shape == shape[:-1]
             assert len(taken) == 1 and taken[0].is_pinned()
             rows = int(np.prod(shape[:-1]))
-            assert tuple(taken[0].shape) == (n_planes, rows, shape[-1])
+            assert taken[0].numel() == n_planes * rows * shape[-1]
 
 
 @pytest.mark.gpu
@@ -290,6 +291,126 @@ def test_portfolio_step_matches_plain_and_separate_kernels_on_card():
         assert torch.equal(got[1], sa_step_deltas_kinds_cuda(*step, U50_TABLES))
     counts = kernels.launch_counts()
     assert counts["portfolio_step_cuda"] == counts["portfolio_step_kinds_cuda"] == len(cases)
+
+
+def _full_tables(rng):
+    """4 kinds of 8 modes, the most the kernels' tables hold."""
+    return tuple((int(rng.integers(1, 32)),
+                  tuple((int(rng.integers(1, 96)), int(rng.integers(1, 40_000)))
+                        for _ in range(8))) for _ in range(4))
+
+
+K5_EDGES = [
+    ((3, 4097), (8, 4)),       # a row past one 4096-slot pass
+    ((1, 8193), (40, 33)),     # two passes; T > 16: the lane loop runs
+    ((2, 300), (5, 20)),
+    ((0, 2253), (8, 4)),       # no population rows
+    ((150, 2253), (0, 4)),     # no chains
+    ((0, 1), (0, 1)),          # neither: no launch
+    ((4, 300), (128, 4)),      # one block of chain rows, full
+    ((4, 300), (129, 4)),      # and one past it
+    ((1, 64), (1025, 0)),      # T = 0: one lane a row, 1024 rows a block
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes", K5_EDGES, ids=str)
+def test_portfolio_step_at_grid_edges_on_card(shapes):
+    """K5 at the edges of its grid, on 4 kinds of 8 modes (kinds one past
+    the table cost 0), exactly equal to the plain version and to a K1/K2
+    plus a K3/K4 launch; one launch per call with work, none without."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    (rows, nb), (c, t) = shapes
+    rng = np.random.default_rng(rows * 7 + nb + c * 3 + t)
+    kt = _full_tables(rng)
+    modes = kt[0][1]
+    w, h, _ = _planes(rng, (rows, nb), dev)
+    k = torch.from_numpy(rng.integers(0, 5, (rows, nb)).astype(np.int32)).to(dev)
+    old = _planes(rng, (c, t), dev)
+    new = _planes(rng, (c, t), dev)
+    ok, nk = (torch.from_numpy(rng.integers(0, 5, (c, t)).astype(np.int32)).to(dev)
+              for _ in range(2))
+    step = (old[0], old[1], new[0], new[1])
+    kernels.reset_launch_counts()
+    got = portfolio_step_cuda(w, h, *step, modes)
+    assert all(map(torch.equal, got, portfolio_step_ref(w, h, *step, modes)))
+    assert torch.equal(got[0], binpack_fitness_cuda(w, h, modes))
+    assert torch.equal(got[1], sa_step_deltas_cuda(*step, modes))
+    step = (old[0], old[1], ok, new[0], new[1], nk)
+    got = portfolio_step_kinds_cuda(w, h, k, *step, kt)
+    assert all(map(torch.equal, got, portfolio_step_kinds_ref(w, h, k, *step, kt)))
+    assert torch.equal(got[0], binpack_fitness_kinds_cuda(w, h, k, kt))
+    assert torch.equal(got[1], sa_step_deltas_kinds_cuda(*step, kt))
+    counts = kernels.launch_counts()
+    want = int(rows + c > 0)
+    assert counts["portfolio_step_cuda"] == counts["portfolio_step_kinds_cuda"] == want
+
+
+@pytest.mark.gpu
+def test_portfolio_step_past_2_32_on_card():
+    """K5 with w * h around and past 2^32 on both halves (slot_units' 64-bit
+    path), on BRAM18 and the U50 tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(32)
+    planes = []
+    for shape in [(3, 5000), (16, 6), (16, 6)]:
+        w = rng.integers(2**15, 2**20, shape).astype(np.int32)
+        w[rng.random(shape) < 0.2] = 0
+        h = np.where(w > 0, rng.integers(2**15, 2**20, shape), 0).astype(np.int32)
+        planes.append([torch.from_numpy(x).to(dev)
+                       for x in (w, h, rng.integers(0, 2, shape).astype(np.int32))])
+    (w, h, k), old, new = planes
+    assert bool(((w.long() * h.long()) >= 2**32).any())
+    step = (old[0], old[1], new[0], new[1])
+    got = portfolio_step_cuda(w, h, *step, BRAM18_MODES)
+    assert all(map(torch.equal, got, portfolio_step_ref(w, h, *step, BRAM18_MODES)))
+    step = (old[0], old[1], old[2], new[0], new[1], new[2])
+    got = portfolio_step_kinds_cuda(w, h, k, *step, U50_TABLES)
+    assert all(map(torch.equal, got, portfolio_step_kinds_ref(w, h, k, *step, U50_TABLES)))
+
+
+@pytest.mark.gpu
+def test_portfolio_ops_stage_through_one_pinned_buffer_on_card(monkeypatch):
+    """A fused ops call on the card takes exactly one host buffer, pinned,
+    holding both halves' planes (one host->device copy), and gives the host
+    backend's totals and deltas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import staging
+    from repro_torch.kernels.binpack_portfolio_step import portfolio_step
+
+    taken = []
+    inner = staging.host_buffer
+
+    def spy(shape, dtype, device):
+        buf = inner(shape, dtype, device)
+        taken.append(buf)
+        return buf
+
+    monkeypatch.setattr(staging, "host_buffer", spy)
+    rng = np.random.default_rng(8)
+    for pop_shape, (c, t) in [((2, 75, 2253), (8, 4)), ((1, 1, 1), (1, 1)),
+                              ((1, 3, 5000), (40, 17))]:
+        W, H, K = (x.numpy() for x in _planes(rng, pop_shape, "cpu"))
+        old = [x.numpy() for x in _planes(rng, (c, t), "cpu")]
+        new = [x.numpy() for x in _planes(rng, (c, t), "cpu")]
+        geo = (W, H, old[0], old[1], new[0], new[1])
+        for kw, n_planes in (({}, 2 + 4),
+                             (dict(kinds=K, old_k=old[2], new_k=new[2],
+                                   kind_tables=U50_TABLES), 3 + 6)):
+            taken.clear()
+            got = portfolio_step(*geo, backend="cuda", device="cuda", **kw)
+            assert len(taken) == 1 and taken[0].is_pinned()
+            want = portfolio_step(*geo, backend="python", **kw)
+            assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            rows = int(np.prod(pop_shape[:-1]))
+            n_pop = 3 if kw else 2
+            assert tuple(taken[0].shape) == (
+                n_pop * rows * pop_shape[-1] + (n_planes - n_pop) * c * t,)
 
 
 @pytest.mark.gpu

@@ -128,7 +128,7 @@ def test_stage_rejects_planes_of_different_shapes():
 
 
 def test_wrappers_check_kind_tables_on_every_device():
-    """The wrappers build the by-value ``KindTables`` argument on every call,
+    """The wrappers build the by-value table argument on every call,
     before they pick the path, so a table the kernel could not take is
     refused on the CPU too; lists are accepted as tuples are."""
     rng = np.random.default_rng(6)

@@ -1,10 +1,11 @@
 // The designs K1 / K2's redesign (src/repro_torch/kernels/csrc/
-// binpack_fitness.cu, included below) was chosen over, built and timed
-// beside it by tools/fitness_design_probe.py.  Nothing in src/ builds or
+// binpack_fitness.cu, included below) and K5's (binpack_portfolio_step.cu,
+// whose roles are the same row bodies) were chosen over, built and timed
+// beside them by tools/fitness_design_probe.py.  Nothing in src/ builds or
 // calls this file.
 //
-//   block_row_kernel  the port's design (one 1024-thread block per row)
-//                     with its 32-bit product path switchable (FAST32);
+//   block_row_kernel  the port's K1 / K2 design (one 1024-thread block per
+//                     row) with its 32-bit product path switchable (FAST32);
 //                     <true> is the port's kernel;
 //   cluster_kernel    each row over a thread-block cluster of up to 8
 //                     blocks of 128 threads (512 slots a block), the warps'
@@ -14,14 +15,46 @@
 //                     distributed-shared-memory stores and one
 //                     cluster.sync(); FAST32 as above;
 //   empty_kernel      a launch alone, plain or as clusters, with or without
-//                     one cluster barrier.
+//                     one cluster barrier;
+//   first_design::portfolio_step_kernel
+//                     K5 as it was before its redesign, both roles: 256-
+//                     thread blocks, a population row's strided loop over
+//                     the rolled `kind_cost` (run-time divisions in a loop
+//                     bounded by n_modes), then one thread per chain row;
+//                     also K1 / K2's first design when given no chains;
+//   k5_other_bound_kernel
+//                     the port's K5 (the same two roles) under the other
+//                     register bound: K5a held by __launch_bounds__(1024, 2)
+//                     to 32 registers (two blocks an SM), K5b left free
+//                     (__launch_bounds__(1024), one block an SM) -- the
+//                     choices the port's bounds were taken over;
+//   kind_tables_design::sa_step_lanes_kernel
+//                     K3 / K4 before they took the shared slot cost: the
+//                     same lane groups, but `KindTables` (the raw modes,
+//                     292 B) by value, staged in shared memory by every
+//                     block, and run-time 32-bit divisions with the mode
+//                     loop unrolled and masked by a select.
 #include <cooperative_groups.h>
 
 #include "binpack_fitness.cu"
+#include "sa_lanes.cuh"
 
 namespace cg = cooperative_groups;
 
+// The raw mode tables the designs before the shared slot cost took by value
+// (the port's kernels take FitnessTables).  Must match `KindTables` in
+// tools/fitness_design_probe.py field for field.
+struct KindTables {
+  int32_t n_kinds;
+  int32_t n_modes[RT_MAX_KINDS];
+  int32_t weight[RT_MAX_KINDS];
+  int32_t mode_w[RT_MAX_KINDS][RT_MAX_MODES];
+  int32_t mode_d[RT_MAX_KINDS][RT_MAX_MODES];
+};
+static_assert(sizeof(KindTables) == 292, "KindTables layout changed");
+
 namespace {
+
 
 // slot_units without the 32-bit path: every mode's product and the
 // minimum in 64 bits
@@ -58,19 +91,19 @@ __device__ __forceinline__ long long probe_cost(int32_t w, int32_t h, int32_t k,
 }
 
 template <bool KINDS, bool FAST32>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFitnessThreads)
 block_row_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__ heights,
                  const int32_t* __restrict__ kinds, long long* __restrict__ totals, int nb,
                  const __grid_constant__ FitnessTables tables) {
-  __shared__ long long partials[kThreads / 32];
+  __shared__ long long partials[kFitnessThreads / 32];
   __shared__ __align__(16) FitnessTables st;
   const long long base = static_cast<long long>(blockIdx.x) * nb;
   long long acc = 0;
-  for (long long start = 0; start < nb || start == 0; start += kChunk) {
-    int32_t w[kItems], h[kItems], k[kItems];
+  for (long long start = 0; start < nb || start == 0; start += kFitnessChunk) {
+    int32_t w[kFitnessItems], h[kFitnessItems], k[kFitnessItems];
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const long long j = start + i * kThreads + threadIdx.x;
+    for (int i = 0; i < kFitnessItems; ++i) {
+      const long long j = start + i * kFitnessThreads + threadIdx.x;
       w[i] = j < nb ? widths[base + j] : 0;
     }
     if (KINDS && start == 0) {
@@ -81,14 +114,14 @@ block_row_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__
       }
     }
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const long long j = start + i * kThreads + threadIdx.x;
+    for (int i = 0; i < kFitnessItems; ++i) {
+      const long long j = start + i * kFitnessThreads + threadIdx.x;
       h[i] = w[i] > 0 ? heights[base + j] : 0;
       k[i] = KINDS && w[i] > 0 ? kinds[base + j] : 0;
     }
     if (KINDS && start == 0) __syncthreads();
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) acc += probe_cost<KINDS, FAST32>(w[i], h[i], k[i], tables, st);
+    for (int i = 0; i < kFitnessItems; ++i) acc += probe_cost<KINDS, FAST32>(w[i], h[i], k[i], tables, st);
     if (nb == 0) break;
   }
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
@@ -103,7 +136,7 @@ block_row_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__
 
 constexpr int kClusterThreads = 128;
 constexpr int kClusterWarps = kClusterThreads / 32;
-constexpr int kClusterChunk = kClusterThreads * kItems;  // 512 slots a block
+constexpr int kClusterChunk = kClusterThreads * kFitnessItems;  // 512 slots a block
 constexpr int kMaxCluster = 8;                           // the portable cluster size
 
 // The cluster barrier in two halves (as CUTLASS's cluster_arrive /
@@ -154,13 +187,13 @@ cluster_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__ h
                  : : "r"(shared_address(&landed)), "r"(s * kClusterWarps * 8u));
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
-  int32_t w[kItems], h[kItems], k[kItems];
+  int32_t w[kFitnessItems], h[kFitnessItems], k[kFitnessItems];
   long long acc = 0;
   long long start = static_cast<long long>(rank) * kClusterChunk;
   bool first = true;
   do {
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
+    for (int i = 0; i < kFitnessItems; ++i) {
       const long long j = start + i * kClusterThreads + threadIdx.x;
       w[i] = j < nb ? widths[base + j] : 0;
     }
@@ -175,14 +208,14 @@ cluster_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__ h
       cluster_arrive();
     }
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
+    for (int i = 0; i < kFitnessItems; ++i) {
       const long long j = start + i * kClusterThreads + threadIdx.x;
       h[i] = w[i] > 0 ? heights[base + j] : 0;
       k[i] = KINDS && w[i] > 0 ? kinds[base + j] : 0;
     }
     if (first && KINDS) cluster_wait();
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) acc += probe_cost<KINDS, FAST32>(w[i], h[i], k[i], tables, st);
+    for (int i = 0; i < kFitnessItems; ++i) acc += probe_cost<KINDS, FAST32>(w[i], h[i], k[i], tables, st);
     if (first && !KINDS) cluster_wait();
     first = false;
     start += stride;
@@ -239,7 +272,343 @@ int launch_clusters(void (*kernel)(Params...), int blocks, int threads, int clus
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 before its redesign (csrc/binpack_rows.cuh and the rolled kind_cost
+// of csrc/kind_tables.cuh, both roles as they were), for the timings.
+namespace first_design {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ long long kind_cost(int32_t w, int32_t h, int32_t k,
+                                               const KindTables& t) {
+  if (w <= 0 || k < 0 || k >= t.n_kinds) return 0;
+  long long best = 0;
+  for (int m = 0; m < t.n_modes[k]; ++m) {
+    const uint32_t mw = static_cast<uint32_t>(t.mode_w[k][m]);
+    const uint32_t md = static_cast<uint32_t>(t.mode_d[k][m]);
+    const uint32_t cw = (static_cast<uint32_t>(w) + mw - 1u) / mw;
+    const uint32_t ch = (static_cast<uint32_t>(h) + md - 1u) / md;
+    const long long c = static_cast<long long>(cw) * ch;
+    if (m == 0 || c < best) best = c;
+  }
+  return best * t.weight[k];
+}
+
+template <bool KINDS>
+__device__ __forceinline__ void fitness_row(const int32_t* __restrict__ widths,
+                                            const int32_t* __restrict__ heights,
+                                            const int32_t* __restrict__ kinds,
+                                            long long* __restrict__ totals, long long row,
+                                            int nb, const KindTables& tables) {
+  const long long base = row * nb;
+  long long acc = 0;
+  for (int j = threadIdx.x; j < nb; j += kThreads) {
+    const int32_t k = KINDS ? kinds[base + j] : 0;
+    acc += kind_cost(widths[base + j], heights[base + j], k, tables);
+  }
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  __shared__ long long warp_sums[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < kThreads / 32 ? warp_sums[lane] : 0;
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) totals[row] = acc;
+  }
+}
+
+template <bool KINDS>
+__device__ __forceinline__ void sa_delta_row(const int32_t* __restrict__ old_w,
+                                             const int32_t* __restrict__ old_h,
+                                             const int32_t* __restrict__ old_k,
+                                             const int32_t* __restrict__ new_w,
+                                             const int32_t* __restrict__ new_h,
+                                             const int32_t* __restrict__ new_k,
+                                             long long* __restrict__ deltas, long long row,
+                                             int t, const KindTables& tables) {
+  const long long base = row * t;
+  long long d = 0;
+  for (int j = 0; j < t; ++j) {
+    const long long i = base + j;
+    const int32_t ko = KINDS ? old_k[i] : 0;
+    const int32_t kn = KINDS ? new_k[i] : 0;
+    d += kind_cost(new_w[i], new_h[i], kn, tables) - kind_cost(old_w[i], old_h[i], ko, tables);
+  }
+  deltas[row] = d;
+}
+
+template <bool KINDS>
+__global__ void __launch_bounds__(kThreads)
+portfolio_step_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__ heights,
+                      const int32_t* __restrict__ kinds, long long* __restrict__ totals,
+                      int n_rows, int nb, const int32_t* __restrict__ old_w,
+                      const int32_t* __restrict__ old_h, const int32_t* __restrict__ old_k,
+                      const int32_t* __restrict__ new_w, const int32_t* __restrict__ new_h,
+                      const int32_t* __restrict__ new_k, long long* __restrict__ deltas,
+                      int c, int t, const KindTables tables) {
+  if (static_cast<int>(blockIdx.x) < n_rows) {
+    fitness_row<KINDS>(widths, heights, kinds, totals, blockIdx.x, nb, tables);
+    return;
+  }
+  const long long row = static_cast<long long>(blockIdx.x - n_rows) * kThreads + threadIdx.x;
+  if (row >= c) return;
+  sa_delta_row<KINDS>(old_w, old_h, old_k, new_w, new_h, new_k, deltas, row, t, tables);
+}
+
+}  // namespace first_design
+
+// K3 / K4 before they took the shared slot cost (KindTables, run-time
+// divisions), for the timings; the lane groups and the grid as the port's.
+namespace kind_tables_design {
+
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ long long kind_cost_unrolled(int32_t w, int32_t h, int32_t k,
+                                                        const KindTables& t) {
+  if (w <= 0 || k < 0 || k >= t.n_kinds) return 0;
+  const int n = t.n_modes[k];
+  long long best = 0;
+#pragma unroll
+  for (int m = 0; m < RT_MAX_MODES; ++m) {
+    const bool on = m < n;
+    const uint32_t mw = on ? static_cast<uint32_t>(t.mode_w[k][m]) : 1u;
+    const uint32_t md = on ? static_cast<uint32_t>(t.mode_d[k][m]) : 1u;
+    const uint32_t cw = (static_cast<uint32_t>(w) + mw - 1u) / mw;
+    const uint32_t ch = (static_cast<uint32_t>(h) + md - 1u) / md;
+    const long long c = static_cast<long long>(cw) * ch;
+    if (on && (m == 0 || c < best)) best = c;
+  }
+  return best * t.weight[k];
+}
+
+// the first warp copies the parameter (73 words), three words a lane
+__device__ __forceinline__ void stage_kind_tables(KindTables& st, const KindTables& tables) {
+  if (threadIdx.x < 32) {
+    constexpr int kWords = sizeof(KindTables) / sizeof(int32_t);
+    static_assert(kWords <= 3 * 32, "KindTables outgrew the staging loop");
+    const int32_t* src = reinterpret_cast<const int32_t*>(&tables);
+    int32_t* dst = reinterpret_cast<int32_t*>(&st);
+    int32_t v[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int i = threadIdx.x + 32 * r;
+      v[r] = i < kWords ? src[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int i = threadIdx.x + 32 * r;
+      if (i < kWords) dst[i] = v[r];
+    }
+  }
+}
+
+template <bool KINDS>
+__global__ void sa_step_lanes_kernel(const int32_t* __restrict__ old_w,
+                                     const int32_t* __restrict__ old_h,
+                                     const int32_t* __restrict__ old_k,
+                                     const int32_t* __restrict__ new_w,
+                                     const int32_t* __restrict__ new_h,
+                                     const int32_t* __restrict__ new_k,
+                                     long long* __restrict__ deltas, int c, int t,
+                                     int log2_lanes, const __grid_constant__ KindTables tables) {
+  __shared__ KindTables st;
+  const int lanes = 1 << log2_lanes;
+  const int lane = threadIdx.x & (lanes - 1);
+  const unsigned row = blockIdx.x * (blockDim.x >> log2_lanes) + (threadIdx.x >> log2_lanes);
+  const long long base = static_cast<long long>(row) * t;
+  const bool busy = row < static_cast<unsigned>(c) && lane < 2 * t;
+  int32_t w = 0, h = 0, k = 0;
+  if (busy) load_item<KINDS>(old_w, old_h, old_k, new_w, new_h, new_k, base, t, lane, w, h, k);
+  stage_kind_tables(st, tables);
+  __syncthreads();
+  long long d = 0;
+  if (busy) {
+    const long long first = kind_cost_unrolled(w, h, k, st);
+    d = lane < t ? first : -first;
+    for (int j = lane + lanes; j < 2 * t; j += lanes) {
+      load_item<KINDS>(old_w, old_h, old_k, new_w, new_h, new_k, base, t, j, w, h, k);
+      const long long more = kind_cost_unrolled(w, h, k, st);
+      d += j < t ? more : -more;
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (row < static_cast<unsigned>(c) && lane == 0) deltas[row] = d;
+}
+
+}  // namespace kind_tables_design
+
+// K4 with its table staged in shared memory first, three ways (the port's
+// K4 reads it from the parameter; the lane groups as the port's):
+//   0  a loop, one word a thread a pass (five passes in a 32-thread block);
+//   1  every thread's loads issued before any of its stores;
+//   2  as 0 in blocks of at least 160 threads (one pass).
+template <int V>
+__global__ void k4_stage_kernel(const int32_t* __restrict__ old_w,
+                                const int32_t* __restrict__ old_h,
+                                const int32_t* __restrict__ old_k,
+                                const int32_t* __restrict__ new_w,
+                                const int32_t* __restrict__ new_h,
+                                const int32_t* __restrict__ new_k,
+                                long long* __restrict__ deltas, int c, int t, int log2_lanes,
+                                const __grid_constant__ FitnessTables tables) {
+  __shared__ __align__(16) FitnessTables st;
+  const int lanes = 1 << log2_lanes;
+  const int lane = threadIdx.x & (lanes - 1);
+  const unsigned row = blockIdx.x * (blockDim.x >> log2_lanes) + (threadIdx.x >> log2_lanes);
+  const long long base = static_cast<long long>(row) * t;
+  const bool busy = row < static_cast<unsigned>(c) && lane < 2 * t;
+  int32_t w = 0, h = 0, k = 0;
+  if (busy) load_item<true>(old_w, old_h, old_k, new_w, new_h, new_k, base, t, lane, w, h, k);
+  constexpr int kWords = sizeof(FitnessTables) / sizeof(int32_t);
+  const int32_t* src = reinterpret_cast<const int32_t*>(&tables);
+  int32_t* dst = reinterpret_cast<int32_t*>(&st);
+  if (V == 0 || V == 2) {
+    for (int i = threadIdx.x; i < kWords; i += blockDim.x) dst[i] = src[i];
+  } else {
+    constexpr int kPer = (kWords + 31) / 32;
+    int32_t v[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * blockDim.x;
+      v[r] = i < kWords ? src[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * blockDim.x;
+      if (i < kWords) dst[i] = v[r];
+    }
+  }
+  __syncthreads();
+  auto cost = [&](int32_t sw, int32_t sh, int32_t sk) {
+    return fitness_slot_cost<true>(sw, sh, sk, st);
+  };
+  long long d = 0;
+  if (busy) {
+    const long long first = cost(w, h, k);
+    d = lane < t ? first : -first;
+    for (int j = lane + lanes; j < 2 * t; j += lanes) {
+      load_item<true>(old_w, old_h, old_k, new_w, new_h, new_k, base, t, j, w, h, k);
+      const long long more = cost(w, h, k);
+      d += j < t ? more : -more;
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (row < static_cast<unsigned>(c) && lane == 0) deltas[row] = d;
+}
+
+// The port's K5 under the other register bound.
+template <bool KINDS>
+__global__ void __launch_bounds__(kFitnessThreads, KINDS ? 1 : 2)
+k5_other_bound_kernel(const int32_t* __restrict__ widths, const int32_t* __restrict__ heights,
+                     const int32_t* __restrict__ kinds, long long* __restrict__ totals,
+                     int n_rows, int nb, const int32_t* __restrict__ old_w,
+                     const int32_t* __restrict__ old_h, const int32_t* __restrict__ old_k,
+                     const int32_t* __restrict__ new_w, const int32_t* __restrict__ new_h,
+                     const int32_t* __restrict__ new_k, long long* __restrict__ deltas,
+                     int c, int t, int log2_lanes,
+                     const __grid_constant__ FitnessTables tables) {
+  if (static_cast<int>(blockIdx.x) < n_rows) {
+    fitness_row<KINDS>(widths, heights, kinds, totals, nb, tables);
+    return;
+  }
+  sa_lanes_rows<KINDS>(old_w, old_h, old_k, new_w, new_h, new_k, deltas, c, t, log2_lanes,
+                       blockIdx.x - n_rows, tables);
+}
+
 }  // namespace
+
+// K5 before its redesign: `kinds` selects K5b (kind pointers may be null
+// without it).  No launch for an empty grid.
+extern "C" int probe_old_k5_launch(int kinds, const int32_t* w, const int32_t* h,
+                                   const int32_t* k, long long* totals, int n_rows, int nb,
+                                   const int32_t* ow, const int32_t* oh, const int32_t* ok,
+                                   const int32_t* nw, const int32_t* nh, const int32_t* nk,
+                                   long long* deltas, int c, int t, const KindTables* tables,
+                                   cudaStream_t stream) {
+  using first_design::kThreads;
+  const int blocks = n_rows + (c + kThreads - 1) / kThreads;
+  if (blocks == 0) return 0;
+  if (kinds) {
+    first_design::portfolio_step_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        w, h, k, totals, n_rows, nb, ow, oh, ok, nw, nh, nk, deltas, c, t, *tables);
+  } else {
+    first_design::portfolio_step_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        w, h, k, totals, n_rows, nb, ow, oh, ok, nw, nh, nk, deltas, c, t, *tables);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 / K4 before they took the shared slot cost; `kinds` selects K4 (kind
+// pointers may be null without it).  The grid as the port's K3 / K4.
+extern "C" int probe_old_k34_launch(int kinds, const int32_t* ow, const int32_t* oh,
+                                    const int32_t* ok, const int32_t* nw, const int32_t* nh,
+                                    const int32_t* nk, long long* deltas, int c, int t,
+                                    const KindTables* tables, cudaStream_t stream) {
+  using kind_tables_design::kThreads;
+  if (c <= 0) return 0;
+  const int lg = sa_lanes_log2(t);
+  const long long want = (static_cast<long long>(c) << lg) + 31;
+  const int threads = static_cast<int>(want / 32 * 32 < kThreads ? want / 32 * 32 : kThreads);
+  const int blocks = (c + (threads >> lg) - 1) / (threads >> lg);
+  if (kinds) {
+    kind_tables_design::sa_step_lanes_kernel<true><<<blocks, threads, 0, stream>>>(
+        ow, oh, ok, nw, nh, nk, deltas, c, t, lg, *tables);
+  } else {
+    kind_tables_design::sa_step_lanes_kernel<false><<<blocks, threads, 0, stream>>>(
+        ow, oh, ok, nw, nh, nk, deltas, c, t, lg, *tables);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 with its table staged, variant 0-2 (k4_stage_kernel).
+extern "C" int probe_k4_stage_launch(int variant, const int32_t* ow, const int32_t* oh,
+                                     const int32_t* ok, const int32_t* nw, const int32_t* nh,
+                                     const int32_t* nk, long long* deltas, int c, int t,
+                                     const FitnessTables* tables, cudaStream_t stream) {
+  if (c <= 0) return 0;
+  const int lg = sa_lanes_log2(t);
+  const long long want = (static_cast<long long>(c) << lg) + 31;
+  int threads = static_cast<int>(want / 32 * 32 < 128 ? want / 32 * 32 : 128);
+  if (variant == 2 && threads < 160) threads = 160;
+  const int blocks = (c + (threads >> lg) - 1) / (threads >> lg);
+#define PROBE_K4(V)                                                                         \
+  case V:                                                                                   \
+    k4_stage_kernel<V><<<blocks, threads, 0, stream>>>(ow, oh, ok, nw, nh, nk, deltas, c, t, \
+                                                        lg, *tables);                      \
+    break;
+  switch (variant) {
+    PROBE_K4(0)
+    PROBE_K4(1)
+    PROBE_K4(2)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PROBE_K4
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The port's K5 under the other register bound; the grid as the port's.
+extern "C" int probe_k5_other_bound_launch(int kinds, const int32_t* w, const int32_t* h,
+                                          const int32_t* k, long long* totals, int n_rows,
+                                          int nb, const int32_t* ow, const int32_t* oh,
+                                          const int32_t* ok, const int32_t* nw,
+                                          const int32_t* nh, const int32_t* nk,
+                                          long long* deltas, int c, int t,
+                                          const FitnessTables* tables, cudaStream_t stream) {
+  const int lg = sa_lanes_log2(t);
+  const int per_block = kFitnessThreads >> lg;
+  const int blocks = n_rows + (c + per_block - 1) / per_block;
+  if (blocks == 0) return 0;
+  if (kinds) {
+    k5_other_bound_kernel<true><<<blocks, kFitnessThreads, 0, stream>>>(
+        w, h, k, totals, n_rows, nb, ow, oh, ok, nw, nh, nk, deltas, c, t, lg, *tables);
+  } else {
+    k5_other_bound_kernel<false><<<blocks, kFitnessThreads, 0, stream>>>(
+        w, h, k, totals, n_rows, nb, ow, oh, ok, nw, nh, nk, deltas, c, t, lg, *tables);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // variant: bit 0 FAST32
 extern "C" int probe_block_row_launch(int variant, const int32_t* w, const int32_t* h,
@@ -248,11 +617,11 @@ extern "C" int probe_block_row_launch(int variant, const int32_t* w, const int32
                                       cudaStream_t stream) {
   const FitnessTables t = *tables;
   if (variant & 1) {
-    if (kinds) block_row_kernel<true, true><<<p, kThreads, 0, stream>>>(w, h, k, totals, nb, t);
-    else block_row_kernel<false, true><<<p, kThreads, 0, stream>>>(w, h, k, totals, nb, t);
+    if (kinds) block_row_kernel<true, true><<<p, kFitnessThreads, 0, stream>>>(w, h, k, totals, nb, t);
+    else block_row_kernel<false, true><<<p, kFitnessThreads, 0, stream>>>(w, h, k, totals, nb, t);
   } else {
-    if (kinds) block_row_kernel<true, false><<<p, kThreads, 0, stream>>>(w, h, k, totals, nb, t);
-    else block_row_kernel<false, false><<<p, kThreads, 0, stream>>>(w, h, k, totals, nb, t);
+    if (kinds) block_row_kernel<true, false><<<p, kFitnessThreads, 0, stream>>>(w, h, k, totals, nb, t);
+    else block_row_kernel<false, false><<<p, kFitnessThreads, 0, stream>>>(w, h, k, totals, nb, t);
   }
   return static_cast<int>(cudaGetLastError());
 }
