@@ -50,6 +50,28 @@ no result line):
    common one and the reference benchmark's (2048, 1024) x 4, beside its
    plain version and one cuBLAS GEMM + gather, then a whole pass over the
    store, and one pass under ``torch.profiler``;
+6a. the DSE sweep's main path: ``pack_sweep`` over a fleet of 50
+   positions (the 8 Table-1 accelerators with no device, on ZU7EV and on
+   U50, seeds 0 and 1, plus two renamed copies: 48 solved in two
+   cost-model groups, 2 fingerprint-dedup hits), SA-S x8 1000 iterations
+   and GA-NFD 20 generations (RN152-W1A2's hyperparameters, n_pop 75),
+   each through the kernels (launch counts reset just before the sweep
+   and read just after: K3 and K4, or K1 and K2, and nothing else) and
+   through host numpy, bit for bit; RN152-W1A2 and RN152-W1A2@U50 also
+   against their own ``pack()``; a second SA sweep from the first one's
+   cache, solving and launching nothing; K1-K4 exactly equal to their
+   plain versions on each group's first input ((16, 75, 2253),
+   (32, 75, 2253), (128, 4), (256, 4)); candidates/s per backend and one
+   cuda sweep per algorithm under ``torch.profiler``;
+6b. crash-safe resume, in a temporary directory removed at the end: the
+   SA fleet checkpointed every 250 iterations, killed after its second
+   snapshot (an exception from ``on_checkpoint``) and resumed, then its
+   newest snapshot torn and resumed again; the GA fleet every 5
+   generations, killed after snapshot 2 and resumed; the RN152-W1A2
+   default-lineup portfolio every 8 barriers, killed after snapshot 2 and
+   resumed; each resumed record equal to the uninterrupted cuda run (the
+   portfolio's wall-time-ordered merged trace aside, as in the reference's
+   contract); snapshot bytes and seconds per save;
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -60,7 +82,9 @@ no result line):
    turns with the pageable call path it replaced, K1-K4's with its result
    fetched by ``.cpu()`` or through a pinned buffer and an event, and K3 /
    K4 at the three shapes the main paths give them (64, 8 and 1 chains x 4
-   slots) in turns with their body before the shared slot cost;
+   slots) in turns with their body before the shared slot cost; K1-K4 at
+   the DSE sweep's shapes with their bounds, K1 / K2 also with the staging
+   of their (P, 75, 2253) planes alone and its copy alone;
    every kernel's launch floor (its wrapper at the smallest legal
    all-empty input, in the same graph harness); then each engine's
    generation / step loop alone (set-up excluded), ``python`` and ``cuda``
@@ -618,10 +642,10 @@ def portfolio_runs(device) -> dict:
     default lineup through the kernels (fused barriers through K5) and
     through host numpy, bit for bit; then one ``auto=True`` race on
     RN152-W1A2 the same way.  Returns the launch counts summed over the
-    kernel runs and each run's record."""
+    kernel runs, each run's record, and each cuda run's `portfolio_key`."""
     cases = [(None, {}), (DEVICE_U50, {}), (None, dict(auto=True))]
     launches = {name: 0 for name in KERNELS}
-    runs = {}
+    runs, keys = {}, {}
     for dev, kw in cases:
         label = f"portfolio {PROBLEM}{'@' + dev if dev else ''}" + (" auto" if kw else "")
         rk, tk, nk = portfolio_run(dev, "cuda", device, **kw)
@@ -652,6 +676,7 @@ def portfolio_runs(device) -> dict:
             raise AssertionError(f"{label}: launches {nk}, expected each of {need}")
         for name, n in nk.items():
             launches[name] += n
+        keys[label] = portfolio_key(rk)
         runs[label] = dict(
             cost=rk.cost, iterations=rk.iterations, barriers=rk.params["barriers"],
             migrations=rk.params["migrations"], strides=rk.params["strides"],
@@ -675,7 +700,7 @@ def portfolio_runs(device) -> dict:
             raise AssertionError(f"{name} was not launched on the portfolio's main path")
     if launches[GATHER]:
         raise AssertionError(f"{GATHER} was launched on the portfolio's path")
-    return dict(launches=launches, runs=runs)
+    return dict(launches=launches, runs=runs, keys=keys)
 
 
 def portfolio_timing(runs, device) -> None:
@@ -1072,6 +1097,483 @@ def memory_path(device) -> dict:
                 max_abs_err=check.max_abs_err, max_err_over_tol=check.max_err_over_tol,
                 cases=check.cases, k1_input=k1_inputs[k1_calls.most_common(1)[0][0]])
 
+
+
+class TimedSwap:
+    """While active, each of ``targets`` (``(label, owner, attribute)``: a
+    module function or a class's method; the engines look both up at call
+    time) is swapped for a wrapper that logs every call's host-clock
+    (entry time, duration) in ``calls`` and sums the durations by label in
+    ``seconds``.  Where given, ``first_of(label, args, kwargs)`` names the
+    key under which ``first`` keeps the first such call's ``(args,
+    kwargs)``, and ``after(args, kwargs)`` is called after each call, its
+    value logged in ``notes``."""
+
+    def __init__(self, targets, first_of=None, after=None):
+        self.targets, self.first_of, self.after = targets, first_of, after
+
+    def __enter__(self):
+        self.calls, self.notes, self.first = [], [], {}
+        self.seconds = {label: 0.0 for label, _, _ in self.targets}
+        self._saved = [(owner, attr, getattr(owner, attr)) for _, owner, attr in self.targets]
+        for (label, owner, attr), (_, _, fn) in zip(self.targets, self._saved):
+            setattr(owner, attr, self._timed(label, fn))
+        return self
+
+    def _timed(self, label, fn):
+        def timed(*args, **kwargs):
+            if self.first_of is not None:
+                self.first.setdefault(self.first_of(label, args, kwargs), (args, kwargs))
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t
+                self.calls.append((t, dt))
+                self.seconds[label] += dt
+                if self.after is not None:
+                    self.notes.append(self.after(args, kwargs))
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+
+def ops_timer(capture=False) -> TimedSwap:
+    """Times every call the engines make to the ops layer
+    (`population_costs`, `sa_step_deltas`).  A cuda call ends in a wait on
+    its copy back, so its duration holds the copies, the launch and the
+    kernel.  With ``capture`` it also keeps the first call's arguments per
+    (function, kinds or not): the kernels' inputs at the run's shapes."""
+    from repro_torch.kernels.binpack_fitness import ops as fops
+    from repro_torch.kernels.binpack_sa_step import ops as sops
+
+    def first_of(label, args, kwargs):
+        return label, kwargs.get("kinds") is not None or kwargs.get("old_k") is not None
+
+    return TimedSwap([("population_costs", fops, "population_costs"),
+                      ("sa_step_deltas", sops, "sa_step_deltas")],
+                     first_of=first_of if capture else None)
+
+
+# ---------------------------------------------------------------- phase 6a
+# The DSE sweep's fleet: benchmarks/bench_dse.py's `_fleet` (every Table-1
+# accelerator on ZU7EV and U50, seeds 0 and 1) plus the same accelerators
+# with no device (BRAM18 only), so both cost models run: 16 single-kind and
+# 32 ZU7EV / U50 candidates; then two renamed copies, so the fingerprint
+# dedup has work (50 positions, 48 solved).
+DSE_DEVICES = (None, "ZU7EV", "U50")
+DSE_SEEDS = (0, 1)
+DSE_RENAMED = (("CNV-W1A1", None, 0), ("RN50-W1A2", "U50", 1))
+DSE_BUDGET = dict(max_seconds=1e9, patience=10**9)
+# bench_dse.py anneals 2500 iterations; the GA takes RN152-W1A2's Table-2
+# hyperparameters (n_pop=75) for every candidate
+DSE_ALGS = {
+    "sa-s": dict(n_chains=8, max_iterations=1000),
+    "ga-nfd": dict(max_generations=20),
+}
+# one candidate per group and algorithm is also held against its own pack()
+DSE_STANDALONE = ((PROBLEM, None, 0), (PROBLEM, DEVICE_U50, 0))
+# each algorithm's kernels, BRAM18 group then ZU7EV / U50 group
+DSE_KERNELS = {
+    "sa-s": ("sa_step_deltas_cuda", "sa_step_deltas_kinds_cuda"),
+    "ga-nfd": ("binpack_fitness_cuda", "binpack_fitness_kinds_cuda"),
+}
+# the resume phase: snapshot spacing per lane, and the snapshot after which
+# each run is killed
+RESUME_EVERY = {"sa-s": 250, "ga-nfd": 5, "portfolio": 8}
+RESUME_KILL_AFTER = 2
+
+
+def dse_fleet():
+    """The fleet's problems, seeds and (name, device, seed) labels."""
+    import repro_torch.core as rc
+
+    probs, seeds, labels = [], [], []
+    for dev in DSE_DEVICES:
+        for s in DSE_SEEDS:
+            for name in rc.ACCELERATORS:
+                probs.append(rc.get_problem(name, device=dev))
+                seeds.append(s)
+                labels.append((name, dev, s))
+    for name, dev, s in DSE_RENAMED:
+        p = rc.get_problem(name, device=dev)
+        probs.append(rc.PackingProblem(p.buffers, max_items=p.max_items,
+                                       name=f"{p.name} (renamed)", ocm=p.ocm))
+        seeds.append(s)
+        labels.append((name, dev, s))
+    return probs, seeds, labels
+
+
+def dse_kwargs(alg):
+    import repro_torch.core as rc
+
+    hp = rc.hyperparams(PROBLEM) if alg == "ga-nfd" else {}
+    return dict(hp, **DSE_BUDGET, **DSE_ALGS[alg])
+
+
+def sweep_phases(alg):
+    """What a sweep's host time is split into: SA — the fleet's start
+    (NFD chains, codecs) and finish (decoding); GA — each run's start (its
+    NFD population), the mutation phase, selection, and the stacking of
+    the populations for one fitness call (the lockstep lane only)."""
+    from repro_torch.core import ga
+    from repro_torch.core.sa import SimulatedAnnealingPacker
+
+    if alg == "sa-s":
+        return [("start", SimulatedAnnealingPacker, "_block_start"),
+                ("finish", SimulatedAnnealingPacker, "_block_finish")]
+    return [("start", ga.GeneticPacker, "_start_run"),
+            ("mutation", ga.GeneticPacker, "_mutation_phase"),
+            ("selection", ga.GeneticPacker, "_tournament"),
+            ("stack", ga, "stack_geometry")]
+
+
+def sweep_key(sw):
+    return [result_key(r) for r in sw.results]
+
+
+def check_sweep(sw, label):
+    for r in sw.results:
+        r.solution.validate()
+        if r.solution.cost() != r.solution.cost_full() or r.cost != r.solution.cost():
+            raise AssertionError(f"{label}: cost bookkeeping disagrees")
+
+
+def check_dse_kernels(first, device) -> dict:
+    """K1-K4 against their plain versions on the inputs the cuda sweeps
+    gave them (each group's first call), exactly; returns the largest
+    |kernel - plain| per kernel and the inputs as card tensors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.problem import BRAM18_MODES
+    from repro_torch.kernels.binpack_fitness import (
+        binpack_fitness_cuda, binpack_fitness_kinds_cuda,
+        binpack_fitness_kinds_ref, binpack_fitness_ref,
+    )
+    from repro_torch.kernels.binpack_sa_step import (
+        sa_step_deltas_cuda, sa_step_deltas_kinds_cuda,
+        sa_step_deltas_kinds_ref, sa_step_deltas_ref,
+    )
+
+    def dev(*arrays):
+        out = []
+        for a in arrays:
+            a = np.ascontiguousarray(a, dtype=np.int32)
+            out.append(torch.from_numpy(a.reshape(-1, a.shape[-1])).to(device))
+        return out
+
+    cases = {}
+    for (fn, hetero), (args, kw) in first.items():
+        if fn == "population_costs":
+            host = (args[0], args[1]) + ((kw["kinds"],) if hetero else ())
+            w, h, *k = dev(*host)
+            if hetero:
+                kt = kw["kind_tables"]
+                name = "binpack_fitness_kinds_cuda"
+                cases[name] = dict(
+                    kernel=lambda w=w, h=h, k=k[0], kt=kt: binpack_fitness_kinds_cuda(w, h, k, kt),
+                    plain=lambda w=w, h=h, k=k[0], kt=kt: binpack_fitness_kinds_ref(
+                        w, h, k, kt).sum(1),
+                    host=host, tables=kt)
+            else:
+                modes = kw.get("modes") or BRAM18_MODES
+                name = "binpack_fitness_cuda"
+                cases[name] = dict(
+                    kernel=lambda w=w, h=h, m=modes: binpack_fitness_cuda(w, h, m),
+                    plain=lambda w=w, h=h, m=modes: binpack_fitness_ref(w, h, m).sum(1),
+                    host=host, tables=((1, modes),))
+        else:
+            if hetero:
+                kt = kw["kind_tables"]
+                host = tuple(args[:4]) + (kw["old_k"], kw["new_k"])
+                ow, oh, nw, nh, ok, nk = dev(*host)
+                name = "sa_step_deltas_kinds_cuda"
+                cases[name] = dict(
+                    kernel=lambda a=(ow, oh, ok, nw, nh, nk), kt=kt: sa_step_deltas_kinds_cuda(*a, kt),
+                    plain=lambda a=(ow, oh, ok, nw, nh, nk), kt=kt: sa_step_deltas_kinds_ref(*a, kt),
+                    host=host, tables=kt)
+            else:
+                modes = kw.get("modes") or BRAM18_MODES
+                host = tuple(args[:4])
+                planes = dev(*host)
+                name = "sa_step_deltas_cuda"
+                cases[name] = dict(
+                    kernel=lambda a=planes, m=modes: sa_step_deltas_cuda(*a, m),
+                    plain=lambda a=planes, m=modes: sa_step_deltas_ref(*a, m),
+                    host=host, tables=((1, modes),))
+        c = cases[name]
+        c["shape"] = tuple(np.shape(c["host"][0]))
+        got, want = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        if got.dtype != torch.int64 or got.shape != want.shape:
+            raise AssertionError(f"{name} at the DSE shape {c['shape']}: {got.dtype} "
+                                 f"{tuple(got.shape)} vs {tuple(want.shape)}")
+        c["err"] = int((got - want).abs().max())
+        if c["err"]:
+            raise AssertionError(f"{name} at the DSE shape {c['shape']}: "
+                                 f"max |kernel - plain| = {c['err']}")
+        print(f"[kernels] {name} at the DSE sweep's shape {c['shape']}: "
+              f"max |kernel - plain| = {c['err']}")
+    return cases
+
+
+def dse_path(device) -> dict:
+    """The DSE sweep's main path: the 50-position fleet through `pack_sweep`
+    with SA-S x8 and GA-NFD, once through the kernels (launch counts set to
+    0 just before the sweep, read just after; the per-call ops-layer time
+    and each group's first kernel input kept) and once through host numpy,
+    bit for bit; RN152-W1A2 and RN152-W1A2@U50 also against their own
+    ``pack()``; a second SA sweep served from the first one's cache with no
+    launch; K1-K4 held against their plain versions at the sweep's shapes;
+    one profiled cuda sweep per algorithm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as rc
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    probs, seeds, labels = dse_fleet()
+    n_unique = len(probs) - len(DSE_RENAMED)
+    launches = {name: 0 for name in KERNELS}
+    out = dict(records={}, sweeps={}, first={}, profile={})
+    for alg in DSE_ALGS:
+        kw = dse_kwargs(alg)
+        cache: dict = {}
+        kernels.reset_launch_counts()
+        with ops_timer(capture=True) as ops, TimedSwap(sweep_phases(alg)) as host_k:
+            sk = rc.pack_sweep(probs, alg, seeds=seeds, backend="cuda", device=device,
+                               cache=cache, **kw)
+        nk = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        with ops_timer() as ops_p, TimedSwap(sweep_phases(alg)) as host_p:
+            sp = rc.pack_sweep(probs, alg, seeds=seeds, backend="python", device=device,
+                               **kw)
+        np_ = kernels.launch_counts()
+        label = f"dse {alg} x{len(probs)}"
+        # two cost-model groups; the GA on python takes the serial lane
+        for sw, groups in ((sk, 2), (sp, n_unique if alg == "ga-nfd" else 2)):
+            check_sweep(sw, label)
+            if (sw.n_solved, sw.params["dedup_hits"], sw.n_groups) != (n_unique, 2, groups):
+                raise AssertionError(f"{label}: solved {sw.n_solved}, dedup "
+                                     f"{sw.params['dedup_hits']}, groups {sw.n_groups}")
+        if any(r.params["backend"] != "cuda" for r in sk.results):
+            raise AssertionError(f"{label}: a candidate ran off the cuda backend")
+        if sweep_key(sk) != sweep_key(sp):
+            raise AssertionError(f"{label}: cuda and python sweeps diverge")
+        own = DSE_KERNELS[alg]
+        if any(nk[n] <= 0 for n in own) or any(v for n, v in nk.items() if n not in own):
+            raise AssertionError(f"{label}: launches {nk}, expected each of {own} only")
+        if any(np_.values()):
+            raise AssertionError(f"{label}: python sweep launched kernels {np_}")
+        for name, n in nk.items():
+            launches[name] += n
+        # one candidate per group against its standalone pack()
+        for name, dev, s in DSE_STANDALONE:
+            i = labels.index((name, dev, s))
+            r = rc.pack(probs[i], alg, seed=s, backend="cuda", device=device,
+                        **kw)
+            if result_key(r) != result_key(sk.results[i]):
+                raise AssertionError(f"{label}: {name}@{dev} seed {s} differs from pack()")
+        if alg == "sa-s":
+            kernels.reset_launch_counts()
+            again = rc.pack_sweep(probs, alg, seeds=seeds, backend="cuda", device=device,
+                                  cache=cache, **kw)
+            nc = kernels.launch_counts()
+            if again.n_solved or any(nc.values()) or sweep_key(again) != sweep_key(sk):
+                raise AssertionError(f"{label}: cached re-sweep solved {again.n_solved}, "
+                                     f"launched {nc}")
+            out["cached_candidates_per_sec"] = again.candidates_per_sec
+        ops_s = sum(d for _, d in ops.calls)
+        out["records"][alg] = sweep_key(sk)
+        out["first"].update(ops.first)
+        out["sweeps"][alg] = o = dict(
+            positions=len(probs), solved=sk.n_solved, groups=sk.n_groups,
+            dedup_hits=sk.params["dedup_hits"], launches=nk,
+            seconds={"cuda": sk.wall_time_s, "python": sp.wall_time_s},
+            candidates_per_sec={"cuda": sk.candidates_per_sec,
+                                "python": sp.candidates_per_sec},
+            ops_calls=len(ops.calls), ops_s=ops_s, host_s=sk.wall_time_s - ops_s,
+            # seconds by phase, each backend; "ops" is the ops layer (the
+            # numpy deltas / costs on python), "rest" everything else
+            phases={b: dict(h.seconds, ops=sum(d for _, d in o.calls),
+                            rest=sw.wall_time_s - sum(h.seconds.values())
+                            - sum(d for _, d in o.calls))
+                    for b, h, o, sw in (("cuda", host_k, ops, sk),
+                                        ("python", host_p, ops_p, sp))},
+            shapes={f"{fn}{' kinds' if het else ''}": list(map(int, a[0].shape))
+                    for (fn, het), (a, _) in ops.first.items()},
+        )
+        print(f"[dse] {label}: {sk.n_solved} solved in {sk.n_groups} groups, "
+              f"{sk.params['dedup_hits']} dedup hits; cuda {sk.wall_time_s:.3f}s "
+              f"({sk.candidates_per_sec:.3f} candidates/s; {len(ops.calls)} ops calls "
+              f"{ops_s:.3f}s, host {o['host_s']:.3f}s), python {sp.wall_time_s:.3f}s "
+              f"({sp.candidates_per_sec:.3f}/s), bit-identical; standalone pack() equal "
+              f"for {[f'{n}@{d}' for n, d, _ in DSE_STANDALONE]}; seconds by phase "
+              f"{json.dumps({b: {k: round(v, 3) for k, v in ph.items()} for b, ph in o['phases'].items()})}"
+              f"; first ops call shapes "
+              f"{json.dumps(o['shapes'])}; launches {json.dumps(nk)}")
+    print(f"[dse] cached SA re-sweep: 0 solved, 0 launches, "
+          f"{out['cached_candidates_per_sec']:.1f} candidates/s")
+    out["cases"] = check_dse_kernels(out["first"], device)
+    for alg in DSE_ALGS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sw = rc.pack_sweep(probs, alg, seeds=seeds, backend="cuda", device=device,
+                               **dse_kwargs(alg))
+        if sweep_key(sw) != out["records"][alg]:
+            raise AssertionError(f"dse {alg}: the profiled sweep diverges")
+        key = f"dse {alg} x{len(probs)}"
+        out["profile"][key] = device_share(prof, sw.wall_time_s * 1e6, key,
+                                           f"{sw.n_solved} candidates")
+    print(f"[dse] launches: {json.dumps(launches)}")
+    print(f"[dse] phase took {time.perf_counter() - t_phase:.1f}s")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------- phase 6b
+class Killed(BaseException):
+    """Raised from ``on_checkpoint`` to stop a run right after a durable
+    snapshot, as a kill at that barrier would."""
+
+
+def kill_after(n: int):
+    def hook(step: int) -> None:
+        if step >= n:
+            raise Killed(f"killed after snapshot {step}")
+    return hook
+
+
+def save_timer() -> TimedSwap:
+    """Times every checkpoint step the port's `CheckpointManager` writes;
+    ``notes`` holds each step's bytes on disk."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    def step_bytes(args, kwargs):
+        mgr, step = args[:2]
+        return sum(f.stat().st_size for f in (mgr.dir / f"step_{step:08d}").iterdir())
+
+    return TimedSwap([("save", CheckpointManager, "save")], after=step_bytes)
+
+
+def tear_newest(ck_dir) -> Path:
+    """Truncate the newest step's ``arrays.npz`` to half (a torn write)."""
+    newest = sorted(p for p in Path(ck_dir).glob("step_*")
+                    if p.is_dir() and p.suffix != ".tmp")[-1]
+    f = newest / "arrays.npz"
+    f.write_bytes(f.read_bytes()[: f.stat().st_size // 2])
+    return newest
+
+
+def resume_path(device, dse, portfolio_key_cuda) -> dict:
+    """Crash-safe resume on the card, in a temporary directory removed at
+    the end: the DSE phase's SA-S fleet checkpointed every 250 iterations,
+    killed after snapshot 2 and resumed, then its newest snapshot torn and
+    resumed again; the GA-NFD fleet every 5 generations, killed after
+    snapshot 2 and resumed; the RN152-W1A2 default-lineup portfolio every 8
+    barriers, killed after snapshot 2 and resumed.  Every resumed record
+    must equal the uninterrupted cuda run.  Launch counts are set to 0 just
+    before the phase and read just after."""
+    import shutil
+    import tempfile
+
+    import repro_torch.core as rc
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    probs, seeds, _ = dse_fleet()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    out = {}
+    try:
+        kernels.reset_launch_counts()
+        with save_timer() as saves:
+            for alg in DSE_ALGS:
+                ck = root / alg
+
+                def sweep(**ckw):
+                    return rc.pack_sweep(probs, alg, seeds=seeds, backend="cuda",
+                                         device=device, checkpoint_dir=ck,
+                                         checkpoint_every=RESUME_EVERY[alg],
+                                         **dse_kwargs(alg), **ckw)
+
+                n0 = len(saves.calls)
+                try:
+                    sweep(on_checkpoint=kill_after(RESUME_KILL_AFTER))
+                    raise AssertionError(f"resume {alg}: the run was not killed")
+                except Killed:
+                    pass
+                resumed = sweep(resume=True)
+                check_sweep(resumed, f"resume {alg}")
+                if sweep_key(resumed) != dse["records"][alg]:
+                    raise AssertionError(f"resume {alg}: the resumed sweep differs "
+                                         "from the uninterrupted one")
+                torn = None
+                if alg == "sa-s":
+                    torn = tear_newest(ck).name
+                    again = sweep(resume=True)
+                    if sweep_key(again) != dse["records"][alg]:
+                        raise AssertionError(f"resume {alg}: the sweep resumed past a "
+                                             "torn snapshot differs")
+                mine = list(zip(saves.calls[n0:], saves.notes[n0:]))
+                out[f"sweep {alg}"] = o = dict(
+                    every=RESUME_EVERY[alg], killed_after=RESUME_KILL_AFTER,
+                    torn=torn, saves=len(mine),
+                    snapshot_bytes=[b for _, b in mine],
+                    save_s=[d for (_, d), _ in mine], resumed_solved=resumed.n_solved,
+                    resumed_cache_hits=resumed.cache_hits,
+                )
+                print(f"[resume] sweep {alg}: killed after snapshot {RESUME_KILL_AFTER}, "
+                      f"resumed ({resumed.n_solved} solved, {resumed.cache_hits} served "
+                      f"from the snapshot or dedup)"
+                      + (f", newest snapshot {torn} torn and resumed again" if torn else "")
+                      + f": equal to the uninterrupted cuda sweep; {len(mine)} saves, "
+                      f"{max(o['snapshot_bytes'])} bytes at most, "
+                      f"{sum(o['save_s']) / len(mine):.3f} s per save")
+            ck = root / "portfolio"
+            prob = rc.get_problem(PROBLEM)
+
+            def portfolio(**ckw):
+                return rc.pack(prob, "portfolio", seed=0, backend="cuda", device=device,
+                               checkpoint_dir=ck, checkpoint_every=RESUME_EVERY["portfolio"],
+                               **dict(rc.hyperparams(PROBLEM), **PORTFOLIO), **ckw)
+
+            n0 = len(saves.calls)
+            try:
+                portfolio(on_checkpoint=kill_after(RESUME_KILL_AFTER))
+                raise AssertionError("resume portfolio: the run was not killed")
+            except Killed:
+                pass
+            r = portfolio(resume=True)
+            # the merged trace orders the islands' improvements by wall time,
+            # which restarts on resume: it is outside the resume contract
+            # (the reference's tests/test_resume.py leaves it out too)
+            if portfolio_key(r)[:4] + portfolio_key(r)[5:] != (
+                    portfolio_key_cuda[:4] + portfolio_key_cuda[5:]):
+                raise AssertionError("resume portfolio: the resumed run differs from "
+                                     "phase 5's")
+            mine = list(zip(saves.calls[n0:], saves.notes[n0:]))
+            out["portfolio"] = o = dict(
+                every=RESUME_EVERY["portfolio"], killed_after=RESUME_KILL_AFTER,
+                barriers=r.params["barriers"], fused=r.params["fused"], saves=len(mine),
+                snapshot_bytes=[b for _, b in mine], save_s=[d for (_, d), _ in mine],
+            )
+            print(f"[resume] portfolio {PROBLEM}: killed after snapshot "
+                  f"{RESUME_KILL_AFTER} (barrier {RESUME_KILL_AFTER * o['every']}), resumed "
+                  f"to barrier {o['barriers']} fused={o['fused']}: equal to phase 5's cuda "
+                  f"run; {len(mine)} saves, {max(o['snapshot_bytes'])} bytes at most, "
+                  f"{sum(o['save_s']) / len(mine):.3f} s per save")
+        launches = kernels.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    need = ("binpack_fitness_cuda", "binpack_fitness_kinds_cuda", "sa_step_deltas_cuda",
+            "sa_step_deltas_kinds_cuda", "portfolio_step_cuda")
+    if any(launches[n] <= 0 for n in need) or launches[GATHER]:
+        raise AssertionError(f"resume path launches {launches}, expected each of {need}")
+    print(f"[resume] launches: {json.dumps(launches)}")
+    print(f"[resume] phase took {time.perf_counter() - t_phase:.1f}s")
+    return dict(launches=launches, runs=out)
 
 
 # ----------------------------------------------------------------- phase 7
@@ -1623,6 +2125,73 @@ def sa_shape_timings(inputs, device, probe_lib) -> dict:
     return out
 
 
+def dse_shape_timings(cases, device) -> dict:
+    """K1-K4 at the DSE sweep's shapes (each group's first call: K1 / K2
+    the stacked (P, 75, 2253) populations, K3 / K4 the (P * 8, 4) fleet
+    step): device time per launch (CUDA graph), the plain version, the ops
+    layer per call with its staged copies (median of six rounds), and the
+    bound; for K1 / K2 also the staging alone (the fill of the pinned
+    buffer, its copy and a synchronise, host clock) and the copy alone
+    (CUDA events around one copy of an already filled pinned buffer of the
+    same size); the staging and the ops call are timed in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import staging
+    from repro_torch.kernels.binpack_fitness import population_costs
+    from repro_torch.kernels.binpack_sa_step import sa_step_deltas
+
+    out = {}
+    for name, c in cases.items():
+        host, tables = c["host"], c["tables"]
+        if name.startswith("binpack_fitness"):
+            kinds = name.endswith("kinds_cuda")
+            w = np.asarray(host[0])
+            k = np.asarray(host[2]) if kinds else np.zeros_like(w)
+            live = int((w > 0).sum())
+            n_bytes = 4 * w.size + (8 if kinds else 4) * live + 8 * (w.size // w.shape[-1])
+            n_ops = 4 * sum(len(m) * int(((w > 0) & (k == i)).sum())
+                            for i, (_, m) in enumerate(tables))
+            kw = dict(kinds=host[2], kind_tables=tables) if kinds else dict(modes=tables[0][1])
+            ops = lambda host=host, kw=kw: population_costs(  # noqa: E731
+                host[0], host[1], backend="cuda", device=device, **kw)
+            pinned = staging.host_buffer((len(host) * w.size,), torch.int32, device)
+            extra = dict(
+                copy_ms=time_events(lambda p=pinned: p.to(device, non_blocking=True), 20),
+                staged_bytes=4 * len(host) * w.size,
+            )
+            # the staging alone in turns with the whole ops call
+            turns = time_host_rounds({"ops": ops, "stage": lambda host=host: (
+                staging.stage(host, device), torch.cuda.synchronize())}, rounds=6, n=10)
+        else:
+            n_bytes, n_ops = sa_step_work(host if len(host) == 6 else tuple(host) + (None, None),
+                                          tables)
+            kw = (dict(old_k=host[4], new_k=host[5], kind_tables=tables) if len(host) == 6
+                  else dict(modes=tables[0][1]))
+            ops = lambda host=host, kw=kw: sa_step_deltas(  # noqa: E731
+                *host[:4], backend="cuda", device=device, **kw)
+            extra = {}
+            turns = time_host_rounds({"ops": ops}, rounds=6, n=50)
+        bound_ms, bound_by = bound_of(n_bytes, n_ops)
+        k1 = time_graph(c["kernel"], 200)
+        p1 = time_events(c["plain"], 50)
+        p2 = time_events(c["plain"], 50)
+        k2 = time_graph(c["kernel"], 200)
+        out[name] = o = dict(
+            shape=c["shape"], ms=min(k1, k2), plain_ms=min(p1, p2),
+            ops_ms=turns["ops"], bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+            operations=n_ops, **extra,
+            **({"stage_ms": turns["stage"]} if "stage" in turns else {}),
+        )
+        print(f"[dse-timing] {name} at {o['shape']}: kernel {o['ms']*1e3:.2f} us/launch "
+              f"(graph), plain {o['plain_ms']*1e3:.2f} us, ops layer with staged copies "
+              f"{o['ops_ms']*1e3:.2f} us"
+              + (f" (staging alone {o['stage_ms']*1e3:.1f} us for {o['staged_bytes']} B, "
+                 f"its copy alone {o['copy_ms']*1e3:.1f} us by events)" if extra else "")
+              + f", bound {bound_ms*1e3:.4f} us ({bound_by}: {n_bytes} B, {n_ops} ops)")
+    return out
+
+
 def floor_timings(device) -> dict:
     """Each kernel's launch floor: its wrapper at the smallest legal input,
     every slot empty (K6: an (8, 128) bank of zeros, N = 1), per launch in
@@ -1665,37 +2234,6 @@ def floor_timings(device) -> dict:
     return out
 
 
-class OpsTimer:
-    """Host-clock (entry time, duration) of every call the engines make to
-    the ops layer (`population_costs`, `sa_step_deltas`) while active.  The
-    engines import both at call time, so swapping the module attributes
-    reaches every engine.  A cuda call ends in a wait on its copy back, so
-    its duration holds the copies, the launch and the kernel."""
-
-    def __enter__(self):
-        from repro_torch.kernels.binpack_fitness import ops as fops
-        from repro_torch.kernels.binpack_sa_step import ops as sops
-
-        self.calls = []
-        self._saved = [(fops, "population_costs", fops.population_costs),
-                       (sops, "sa_step_deltas", sops.sa_step_deltas)]
-        for mod, attr, fn in self._saved:
-            setattr(mod, attr, self._timed(fn))
-        return self
-
-    def _timed(self, fn):
-        def timed(*args, **kwargs):
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            self.calls.append((t, time.perf_counter() - t))
-            return out
-        return timed
-
-    def __exit__(self, *exc):
-        for mod, attr, fn in self._saved:
-            setattr(mod, attr, fn)
-
-
 def engine_loop(alg, kw, prob, backend, device, around):
     """Set up one engine on ``prob``, then run its generation / step loop
     alone inside the context ``around()``.  Returns the loop's wall time,
@@ -1709,7 +2247,7 @@ def engine_loop(alg, kw, prob, backend, device, around):
     hp = dict(rc.hyperparams(PROBLEM), max_seconds=1e9, **kw)
     eng = rc.make_packer(alg, seed=0, backend=backend, device=device, **hp)
     eng_backend = eng._resolve_backend()
-    ops = OpsTimer()
+    ops = ops_timer()
     if alg == "ga-nfd":
         run = eng._start_run(prob, np.random.default_rng(eng.seed), None, eng_backend)
         eng._eval_init(run)
@@ -2008,7 +2546,12 @@ def main() -> int:
     portfolio = portfolio_runs(device)
     memory = memory_path(device)
     torch.cuda.empty_cache()  # the 6.6 GB tree is gone; later timings start clean
+    dse = dse_path(device)
+    for name, c in dse["cases"].items():
+        errs[name] = max(errs[name], c["err"])
+    resumed = resume_path(device, dse, portfolio["keys"][f"portfolio {PROBLEM}"])
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
+    dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
     floors = floor_timings(device)
     loops = loop_breakdown(device)
@@ -2019,7 +2562,8 @@ def main() -> int:
     record = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name],
-                   "memory": memory["launches"][name]}
+                   "memory": memory["launches"][name], "dse": dse["launches"][name],
+                   "resume": resumed["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -2050,10 +2594,13 @@ def main() -> int:
                if k in tm},
             **{k: tm[k] for k in ("separate_ms", "alone_ms") if k in tm},
             **({"shapes": sa_shapes[name]} if name in sa_shapes else {}),
+            **({"dse_shape": dse_shapes[name]} if name in dse_shapes else {}),
         ))
     print(f"[loops] {json.dumps(loops)}")
     print(f"[portfolio] {json.dumps(portfolio['runs'])}")
     print(f"[memory] {json.dumps(dict(memory['summary'], profile=memory['profile']))}")
+    print(f"[dse] {json.dumps(dict(dse['sweeps'], profile=dse['profile']))}")
+    print(f"[resume] {json.dumps(resumed['runs'])}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -6,7 +6,8 @@ memories onto physical RAM grids, solved with the Next-Fit Dynamic
 heuristic hybridized into genetic algorithms and simulated annealing.  The
 GA's population fitness and the SA's delta costs (and, in the island
 portfolio, both at once) run through the hand-written CUDA kernels of
-`repro_torch.kernels`.
+`repro_torch.kernels`; `pack_sweep` runs them over a fleet of problems, and
+`pack_sweep` / `pack_portfolio` checkpoint and resume (`core.resume`).
 """
 from .accelerators import (  # noqa: F401
     ACCELERATORS,
@@ -20,7 +21,8 @@ from .accelerators import (  # noqa: F401
     get_problem,
     hyperparams,
 )
-from .api import ALGORITHMS, make_packer, pack  # noqa: F401
+from .api import ALGORITHMS, make_packer, pack, pack_sweep  # noqa: F401
+from .dse import SweepResult, solve_batch, task_key  # noqa: F401
 from .ga import GeneticPacker, buffer_swap, kind_reassign  # noqa: F401
 from .nfd import nfd_from_scratch, nfd_pack_order, nfd_repack  # noqa: F401
 from .portfolio import (  # noqa: F401
@@ -48,6 +50,7 @@ from .problem import (  # noqa: F401
     URAM288,
     batch_group_key,
     buffers_from_shape_rows,
+    decode_problem_batch,
     encode_problem_batch,
     greedy_assign_kinds,
     register_ram_kind,

@@ -7,6 +7,7 @@ import numpy as np
 
 from ..device import resolve_device
 from . import baselines
+from .dse import SweepResult, pack_sweep  # noqa: F401  (re-export)
 from .ga import GeneticPacker
 from .nfd import nfd_from_scratch
 from .problem import (

@@ -381,11 +381,17 @@ class GeneticPacker:
                 run.ovfs[i] = s.inventory_overflow()
         return run
 
-    def _eval_init(self, run: "_GARun") -> None:
+    def _eval_init(self, run: "_GARun", totals=None) -> None:
         """Initial population evaluation (one batched call on the batched
-        backends, cached scalar costs on ``python``)."""
+        backends, cached scalar costs on ``python``).  ``totals`` carries
+        the batched costs when the caller computed them already (the DSE's
+        lockstep lane evaluates every problem's population in one stacked
+        call); otherwise the batched backends make their own call."""
         if run.batched:
-            costs = self._batched_costs(run)
+            costs = (
+                self._batched_costs(run) if totals is None
+                else np.asarray(totals, dtype=np.float64)
+            )
         else:
             costs = np.asarray([s.cost() for s in run.pop], dtype=np.float64)
         fits = np.asarray(
@@ -707,8 +713,24 @@ def lockstep_generation(
 
 class _GARun:
     """One problem's GA state, advanced generation-wise by the phase helpers
-    of `GeneticPacker` (its own `pack()` loop, or the portfolio's island
-    loop through the ``lockstep_*`` phases)."""
+    of `GeneticPacker` (its own `pack()` loop, `core.dse`'s lockstep
+    multi-problem lane, or the portfolio's island loop, all through the
+    ``lockstep_*`` phases).
+
+    ``CODEC_*`` is the serialization contract consumed by ``core.resume``
+    (the reference's, so snapshots cross packages): ``costs``/``fits`` (and
+    ``ovfs`` on heterogeneous problems, all float64) land in a checkpoint's
+    ``arrays.npz``; the scalars, RNG state, population, best solution, and
+    trace in its JSON manifest.  The geometry matrices ``W``/``H``/``Km``
+    are refilled from the restored population, and shared-reference
+    aliasing inside ``pop`` (tournament winners) need not survive
+    serialization: mutation always replaces ``pop[i]`` with a fresh object,
+    never edits one in place.
+    """
+
+    CODEC_ARRAYS = ("costs", "fits")
+    CODEC_ARRAYS_HETERO = ("ovfs",)
+    CODEC_SCALARS = ("best_cost", "best_sel", "gen", "stale", "done")
 
     __slots__ = (
         "prob", "rng", "t0", "backend", "batched", "hetero",

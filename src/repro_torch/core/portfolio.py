@@ -43,10 +43,14 @@ copy back, so no result is read before its own launch has finished and no
 buffer of one thread is written by the other's launch.  The launch counters
 take a lock (`kernels.build.count_launch`).
 
-Left out of this slice (each raises ``NotImplementedError``): crash-safe
-checkpoints (``checkpoint_dir`` / ``resume`` / ``on_checkpoint``, the resume
-slice), sub-fleet sharding and device meshes (``n_shards > 1`` / ``mesh``,
-the sharding slice), and the reference's wall-clock thread-pool baseline
+**Crash safety.**  With ``checkpoint_dir`` the run cuts a durable snapshot
+(`core.resume.PortfolioCheckpointer`) every ``checkpoint_every`` barriers;
+``resume=True`` restarts from the newest intact one.  The snapshot is the
+reference's, so a run checkpointed by either package resumes in the other.
+
+Left out of this port so far: sub-fleet sharding and device meshes
+(``n_shards > 1`` / ``mesh`` raise ``NotImplementedError``, the sharding
+slice), and the reference's wall-clock thread-pool baseline
 ``pack_portfolio_threads``.
 """
 from __future__ import annotations
@@ -133,7 +137,10 @@ class _SAFleetGroup:
 
     Row ``j * C + c`` is chain ``c`` of island ``j``; the bin-slot envelope
     is widened to ``prob.n`` so any migrant packing can be encoded into a
-    chain slot (envelope padding never affects trajectories)."""
+    chain slot (envelope padding never affects trajectories).  ``st`` is
+    the fleet's one block state, which `core.resume.PortfolioCheckpointer`
+    encodes and restores in the layout of the reference's one-shard
+    fleet."""
 
     def __init__(self, packer, prob, rngs, backend):
         self.packer = packer
@@ -456,6 +463,29 @@ class _Race:
         self.rung_spent = 0
         self.eliminated: list[dict] = []
 
+    def state(self) -> dict:
+        """JSON-able snapshot payload (checkpoint codec)."""
+        return {
+            "budget": self.budget,
+            "spent": self.spent,
+            "rung": self.rung,
+            "rung_spent": self.rung_spent,
+            "eliminated": self.eliminated,
+        }
+
+    def restore(self, state: dict, adapters) -> None:
+        """Re-enter a checkpointed race: replay the recorded eliminations
+        onto the freshly restored adapters (idempotent — the engine states
+        in the snapshot are already frozen/stopped) and resume the ledger."""
+        self.spent = int(state["spent"])
+        self.rung = int(state["rung"])
+        self.rung_spent = int(state["rung_spent"])
+        self.eliminated = [dict(e) for e in state["eliminated"]]
+        for e in self.eliminated:
+            k = int(e["island"])
+            self.alive[k] = False
+            adapters[k].eliminate()
+
     def live(self, adapters) -> list[int]:
         """Islands still racing AND still able to advance (not frozen)."""
         return [
@@ -587,6 +617,7 @@ def pack_portfolio(
     scheduler: str = "concurrent",
     fused: bool | None = None,
     checkpoint_dir: str | None = None,
+    checkpoint_every: int = 1,
     resume: bool = False,
     on_checkpoint=None,
     n_shards: int = 1,
@@ -632,6 +663,17 @@ def pack_portfolio(
     ``params["race"]`` records the ledger, the eliminations and the
     survivors.
 
+    Crash safety: with ``checkpoint_dir`` the run cuts a durable snapshot
+    of every island's engine state (plus the barrier/migration counters and
+    a race's ledger) every ``checkpoint_every`` barriers; ``resume=True``
+    restarts from the newest *intact* snapshot and lands on the result of
+    the uninterrupted run, bit for bit.  A run that would advance in one
+    unbounded call (one island, or migration off) pauses at
+    ``DEFAULT_MIGRATION_EVERY``-iteration barriers to cut its snapshots.
+    ``max_seconds`` is not part of the snapshot's identity, so a preempted
+    run may resume under a fresh wall budget.  ``on_checkpoint(step)``
+    fires after each durable write.
+
     If the wall-clock cap cuts any island short of its budgets,
     ``params["truncated_by_wallclock"]`` is True and a `TruncationWarning`
     is emitted.  ``params["barrier_seconds"]`` (per barrier) and
@@ -639,17 +681,11 @@ def pack_portfolio(
     ``"gI+gJ:fused"``) attribute the wall time; they are diagnostics, not
     part of the parity contract.
 
-    Not ported yet (``NotImplementedError``): ``checkpoint_dir`` /
-    ``resume`` / ``on_checkpoint`` (the resume slice) and ``n_shards > 1``
-    / ``mesh`` (the sharding slice).
+    Not ported yet (``NotImplementedError``): ``n_shards > 1`` / ``mesh``
+    (the sharding slice).
     """
     from .api import make_packer  # late import: api imports this module lazily
 
-    if checkpoint_dir is not None or resume or on_checkpoint is not None:
-        raise NotImplementedError(
-            "portfolio checkpoints (checkpoint_dir / resume / on_checkpoint) "
-            "are not ported yet: they come with the resume slice (core/resume.py)"
-        )
     n_shards = int(n_shards)
     if n_shards < 1:
         raise ValueError("n_shards must be >= 1")
@@ -691,6 +727,23 @@ def pack_portfolio(
     if scheduler not in ("concurrent", "serial"):
         raise ValueError(
             f"unknown scheduler {scheduler!r}; options: concurrent, serial"
+        )
+    ck = None
+    if checkpoint_dir is not None:
+        from .resume import PortfolioCheckpointer, portfolio_config_key
+
+        ck = PortfolioCheckpointer(
+            checkpoint_dir,
+            portfolio_config_key(
+                prob, islands, interval, intra_layer, backend, sa_chains,
+                hyper,
+                race=(
+                    (int(race_budget) if race_budget is not None else None,
+                     int(race_final))
+                    if auto else None
+                ),
+            ),
+            every=checkpoint_every, resume=resume, on_checkpoint=on_checkpoint,
         )
     hetero = prob.n_kinds > 1
     t0 = time.perf_counter()
@@ -761,9 +814,16 @@ def pack_portfolio(
     migrations = 0
     truncated = False
     single = len(adapters) == 1
-    # racing pauses even a single island at barriers (to charge the ledger);
-    # barrier segmentation never changes trajectories
-    seg = interval if interval > 0 else (DEFAULT_MIGRATION_EVERY if auto else 0)
+    if ck is not None:
+        restored = ck.restore_groups(groups)
+        if restored is not None:
+            barrier, migrations = restored
+    # racing (to charge the ledger) and checkpointing (to cut snapshots)
+    # pause even a single island at barriers; barrier segmentation never
+    # changes trajectories
+    seg = interval if interval > 0 else (
+        DEFAULT_MIGRATION_EVERY if (ck is not None or auto) else 0
+    )
     # per-family strides rebalance heterogeneous lineups; homogeneous
     # lineups keep the uniform stride.  Strides are part of the trajectory
     # contract; ``scheduler``/``fused`` are not (dispatch only).
@@ -803,6 +863,8 @@ def pack_portfolio(
                 [packer_of(spec, {}) for spec in default_specs], interval
             )
         race = _Race(work, race_budget, race_final)
+        if ck is not None and ck.race is not None:
+            race.restore(ck.race, adapters)
     # the fused pair: the (only) SA fleet group + the GA lockstep pack,
     # merged into one main-thread dispatch unit when both engines resolved
     # to a device backend (forced either way via ``fused``)
@@ -850,7 +912,7 @@ def pack_portfolio(
                 truncated = True
                 break
             t_bar = time.perf_counter()
-            unbounded = race is None and (single or seg <= 0)
+            unbounded = race is None and ((single and ck is None) or seg <= 0)
             limits = [
                 None if unbounded else (barrier + 1) * s for s in strides
             ]
@@ -915,6 +977,11 @@ def pack_portfolio(
                         migrations += isl.migrate_in(migrant)
             if race is not None:
                 race.maybe_halve(adapters, barrier, lam)
+            if ck is not None and barrier % ck.every == 0:
+                ck.save_groups(
+                    groups, barrier, migrations,
+                    race=race.state() if race is not None else None,
+                )
             barrier_seconds.append(time.perf_counter() - t_bar)
             if not any(progressed):
                 break  # no island can move: budgets exhausted mid-barrier

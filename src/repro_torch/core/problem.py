@@ -48,6 +48,7 @@ docs/DESIGN.md section 3 for the heterogeneous extension.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from functools import reduce
 from typing import Iterable, Sequence
@@ -415,6 +416,24 @@ class PackingProblem:
     def lower_bound(self) -> int:
         """Information-theoretic minimum cost in units (capacity bound)."""
         return -(-self.total_bits // self.cost_unit_bits)
+
+    def fingerprint(self) -> str:
+        """Content hash over everything that affects packing outcomes.
+
+        Two problems with equal fingerprints are interchangeable to every
+        solver: same buffer multiset (in order), same cardinality bound,
+        same RAM kinds / mode tables / inventory counts.  Names are
+        excluded, so renamed duplicates inside a DSE sweep still dedup
+        (``core.dse.pack_sweep`` keys its solution cache on this).  Equal to
+        the reference's for the same problem: the arrays are int64 and the
+        tuples hold Python ints, so bytes and ``repr`` agree.
+        """
+        h = hashlib.blake2b(digest_size=16)
+        h.update(self.widths.tobytes())
+        h.update(self.depths.tobytes())
+        h.update(self.layers.tobytes())
+        h.update(repr((self.max_items, self.kind_counts, self.kind_tables)).encode())
+        return h.hexdigest()
 
 
 # geometry-matrix column indices (Solution._geom)
@@ -1010,6 +1029,47 @@ def encode_problem_batch(problems: Sequence[PackingProblem]) -> ProblemBatch:
             prob.ocm.name if prob.ocm is not None else "" for prob in problems
         ),
     )
+
+
+def decode_problem_batch(batch: ProblemBatch) -> list[PackingProblem]:
+    """Reconstruct the problem list from a `ProblemBatch` (codec inverse).
+
+    Round-trips everything a solver can observe: buffer geometry/layers (in
+    order), ``max_items``, RAM kinds and mode tables, inventory counts, and
+    names.  Per-buffer ``Buffer.name`` labels are not carried by the batch
+    and come back empty.
+    """
+    out: list[PackingProblem] = []
+    for j in range(batch.size):
+        nj = int(batch.n[j])
+        bufs = [
+            Buffer(
+                width=int(batch.widths[j, i]),
+                depth=int(batch.depths[j, i]),
+                layer=int(batch.layers[j, i]),
+            )
+            for i in range(nj)
+        ]
+        if batch.has_ocm[j]:
+            ocm = OCMInventory(
+                kinds=batch.ram_kinds,
+                counts=tuple(int(x) for x in batch.kind_counts[j]),
+                name=batch.ocm_names[j],
+            )
+            prob = PackingProblem(
+                bufs, max_items=int(batch.max_items[j]),
+                name=batch.names[j], ocm=ocm,
+            )
+        else:
+            k0 = batch.ram_kinds[0]
+            prob = PackingProblem(
+                bufs,
+                bram=BRAMSpec(modes=tuple(k0.modes), capacity_bits=k0.capacity_bits),
+                max_items=int(batch.max_items[j]),
+                name=batch.names[j],
+            )
+        out.append(prob)
+    return out
 
 
 @dataclasses.dataclass

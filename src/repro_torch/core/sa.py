@@ -89,27 +89,83 @@ class _BlockOut:
     iterations: int
     uphill: tuple[int, int]
     wall: float
+    # (problem, items, counts, kinds, pcosts) views of the problem's chain
+    # rows; decoded only when `chains` / `incumbent` are read
+    rows: tuple = dataclasses.field(default=(), repr=False)
+
+    @property
+    def chains(self) -> list[Solution]:
+        prob, items, counts, kinds, _ = self.rows
+        return [
+            decode_chain_items(
+                prob, items[c], counts[c], None if kinds is None else kinds[c]
+            )
+            for c in range(len(counts))
+        ]
+
+    @property
+    def incumbent(self) -> int:
+        """Index of the chain holding the best incumbent state."""
+        return int(self.rows[4].argmin())
 
 
 class _BlockState:
-    """State of one `_anneal_block` fleet (P problems x C chains): built by
-    `_block_start`, advanced by `_block_run` (optionally only up to an
-    iteration barrier), decoded by `_block_finish`."""
+    """Resumable state of one `_anneal_block` fleet (P problems x C chains):
+    built by `_block_start`, advanced by `_block_run` (optionally only up to
+    an iteration barrier), decoded by `_block_finish`.
+
+    ``CODEC_*`` is the serialization contract consumed by ``core.resume``,
+    field for field the reference's (so a snapshot written by either
+    package restores in the other): array fields land in a checkpoint's
+    ``arrays.npz``, scalar fields (plus RNG bit-generator states and
+    traces, handled by the codec) in its JSON manifest.  Scratch buffers
+    refilled every step (``tslots``/``entry_ok``/``u_all``/``u_metro``),
+    start-derived constants (tables, ladders, row maps) and the problems
+    themselves are rebuilt by `_block_start` and never serialized.
+    """
 
     done: bool = False      # budget/wall exhausted or every problem frozen
     frozen: bool = False    # every problem past patience (subset of done)
 
+    CODEC_ARRAYS = (
+        "items", "counts", "bw", "bh", "live", "costs", "best_pcosts",
+        "stale", "steps", "gbest_pcost", "gbest_cost", "g_items",
+        "g_counts", "g_live", "up_prop", "up_acc",
+    )
+    CODEC_ARRAYS_HETERO = ("pcosts", "bk", "UK", "g_kinds", "g_UK")
+    CODEC_SCALARS = ("it", "done", "frozen")
+
 
 class _ScalarRun:
-    """State of the scalar SA loop (one chain, Solution copies)."""
+    """Resumable state of the scalar SA loop (one chain, Solution copies).
+
+    ``CODEC_*``: the ``core.resume`` contract (see `_BlockState`);
+    ``sol``/``best`` serialize as bins + kind lanes, with geometry caches
+    rebuilt cold on restore.
+    """
 
     done: bool = False
+
+    CODEC_SCALARS = ("cost", "ovf", "best_cost", "best_ovf", "it", "stale",
+                     "done")
+    CODEC_SOLUTIONS = ("sol", "best")
 
 
 class _SingleChainRun:
-    """State of the single-chain delta engine."""
+    """Resumable state of the single-chain delta engine.
+
+    ``CODEC_*``: the ``core.resume`` contract (see `_BlockState`).  The
+    geometry rows (``chain_w``/``chain_h``/``chain_k``) and primitive usage
+    (``used``) are derived from ``sol`` on restore; the ``undo`` log and
+    delta scratch rows are per-iteration transients, and barriers always
+    fall between iterations.
+    """
 
     done: bool = False
+
+    CODEC_SCALARS = ("cost", "ovf", "best_cost", "best_ovf", "uphill_prop",
+                     "uphill_acc", "it", "stale", "done")
+    CODEC_SOLUTIONS = ("sol", "best")
 
 
 class SimulatedAnnealingPacker:
@@ -1035,7 +1091,7 @@ class SimulatedAnnealingPacker:
         hetero, n_chains = st.hetero, self.n_chains
         outs: list[_BlockOut] = []
         for j in range(st.n_probs):
-            lo = j * n_chains
+            lo, hi = j * n_chains, (j + 1) * n_chains
             gbest = decode_chain_items(
                 st.probs[j], st.g_items[j], st.g_counts[j],
                 st.g_kinds[j] if hetero else None,
@@ -1044,9 +1100,11 @@ class SimulatedAnnealingPacker:
                 best=gbest,
                 best_cost=int(st.gbest_cost[j]),
                 trace=st.traces[j],
-                iterations=int(st.steps[lo : lo + n_chains].sum()),
+                iterations=int(st.steps[lo:hi].sum()),
                 uphill=(int(st.up_prop[j]), int(st.up_acc[j])),
                 wall=wall,
+                rows=(st.probs[j], st.items[lo:hi], st.counts[lo:hi],
+                      st.bk[lo:hi] if hetero else None, st.pcosts[lo:hi]),
             ))
         return outs
 

@@ -96,13 +96,16 @@ def test_warm_starts_match_reference():
     assert _key(a) == _key(b)
 
 
-def test_portfolio_and_legacy_wait_for_later_slices():
-    """The portfolio is ported; its checkpoints and sharded fleets, and the
-    legacy backend, wait for later slices."""
+def test_portfolio_and_legacy_wait_for_later_slices(tmp_path):
+    """The portfolio and its checkpoints are ported; its sharded fleets and
+    the legacy backend wait for later slices."""
     prob = port.get_problem("CNV-W1A1")
     assert "portfolio" in port.ALGORITHMS
-    for later in (dict(checkpoint_dir="ckpt"), dict(n_shards=2)):
-        with pytest.raises(NotImplementedError, match="portfolio"):
-            port.pack(prob, "portfolio", device="cpu", **later)
+    r = port.pack(prob, "portfolio", device="cpu", checkpoint_dir=str(tmp_path / "ck"),
+                  max_generations=2, max_iterations=20, max_seconds=1e9)
+    r.solution.validate()
+    assert list((tmp_path / "ck").glob("step_*"))
+    with pytest.raises(NotImplementedError, match="portfolio"):
+        port.pack(prob, "portfolio", device="cpu", n_shards=2)
     with pytest.raises(ValueError, match="legacy"):
         port.pack(prob, "ga-nfd", backend="legacy", device="cpu")

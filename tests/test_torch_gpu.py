@@ -4,8 +4,10 @@ their row blocks, K3 / K4 at the edges of their lane groups), the
 fitness, SA and fused ops layers staging through one pinned buffer, K5
 at the edges of its grid, and
 the island portfolio's fused barriers through K5 equal to the host
-backend; K6 within float32 rounding of its plain version, and the memory
-planner on the card equal to the host backend.
+backend; K6 within float32 rounding of its plain version, the memory
+planner on the card equal to the host backend, and the DSE sweep (SA
+fleet through K3 / K4, GA lockstep through K1 / K2) equal to the host
+backend, also after a crash and a resume.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -512,3 +514,66 @@ def test_memory_planner_on_card_matches_host_backend():
         y = bank_matvec(bank, x, seg)
         assert _gather_within_rounding(y, packed_gather_ref(bank, x, seg), bank, x, seg)
     assert kernels.launch_counts()["packed_gather_cuda"] == len(store.banks)
+
+
+def _sweep_record(sw):
+    return [(r.cost, r.solution.state_dict(), r.iterations, [c for _, c in r.trace])
+            for r in sw.results]
+
+
+@pytest.mark.gpu
+def test_dse_sweep_on_card_matches_host_backend():
+    """`pack_sweep` on the card: the SA fleet over a BRAM18 and a U50 group
+    launches K3 and K4, the GA lockstep lane K1 and K2, and every candidate
+    equals the host backend's; a cached re-sweep launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.core as c
+
+    probs = [c.get_problem(n, device=d) for n in ("CNV-W1A1", "CNV-W2A2")
+             for d in (None, "U50")]
+    cases = (
+        ("sa-s", dict(n_chains=4, max_iterations=200),
+         ("sa_step_deltas_cuda", "sa_step_deltas_kinds_cuda")),
+        ("ga-nfd", dict(n_pop=12, max_generations=6),
+         ("binpack_fitness_cuda", "binpack_fitness_kinds_cuda")),
+    )
+    for alg, kw, need in cases:
+        kw = dict(kw, seeds=[0, 1, 2, 3], max_seconds=1e9, patience=10**9)
+        cache: dict = {}
+        kernels.reset_launch_counts()
+        a = c.pack_sweep(probs, alg, backend="cuda", cache=cache, **kw)
+        counts = kernels.launch_counts()
+        assert a.n_groups == 2 and all(counts[n] > 0 for n in need), counts
+        kernels.reset_launch_counts()
+        b = c.pack_sweep(probs, alg, backend="python", **kw)
+        assert not any(kernels.launch_counts().values())
+        assert _sweep_record(a) == _sweep_record(b)
+        again = c.pack_sweep(probs, alg, backend="cuda", cache=cache, **kw)
+        assert again.n_solved == 0 and not any(kernels.launch_counts().values())
+
+
+@pytest.mark.gpu
+def test_dse_sweep_on_card_resumes_after_a_crash(tmp_path):
+    """A `cuda` SA sweep killed after its second snapshot resumes on the
+    card to the uninterrupted run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.core as c
+
+    class Crash(BaseException):
+        pass
+
+    def crash_after_2(step):
+        if step >= 2:
+            raise Crash
+
+    probs = [c.get_problem("CNV-W1A1", device="U50"), c.get_problem("CNV-W2A2", device="U50")]
+    kw = dict(seeds=[4, 5], n_chains=4, max_iterations=300, max_seconds=1e9,
+              patience=10**9, backend="cuda", checkpoint_every=100)
+    want = _sweep_record(c.pack_sweep(probs, "sa-s", **kw))
+    with pytest.raises(Crash):
+        c.pack_sweep(probs, "sa-s", checkpoint_dir=tmp_path, on_checkpoint=crash_after_2,
+                     **kw)
+    got = c.pack_sweep(probs, "sa-s", checkpoint_dir=tmp_path, resume=True, **kw)
+    assert _sweep_record(got) == want

@@ -84,6 +84,38 @@ def test_cpu_portfolio_loads_neither_jax_nor_reference():
     assert out.stdout.strip() == "ok"
 
 
+def test_cpu_sweep_and_resume_load_neither_jax_nor_reference(tmp_path):
+    """The DSE sweep, its checkpoints (the port's own tree flattening and
+    bf16 codec, no JAX) and a resumed portfolio import nothing of JAX or
+    the reference."""
+    code = (
+        "import sys, torch\n"
+        "import repro_torch.core as c\n"
+        "from repro_torch.checkpoint import CheckpointManager\n"
+        f"ck = {str(tmp_path)!r}\n"
+        "p = [c.get_problem('CNV-W1A1'), c.get_problem('CNV-W2A2', device='U50')]\n"
+        "kw = dict(device='cpu', max_seconds=1e9, seeds=[0, 1])\n"
+        "c.pack_sweep(p, 'sa-s', n_chains=2, max_iterations=40, checkpoint_dir=ck + '/s',\n"
+        "             checkpoint_every=10, **kw)\n"
+        "c.pack_sweep(p, 'ga-nfd', n_pop=6, max_generations=3, **kw)\n"
+        "c.pack(p[0], 'portfolio', device='cpu', max_generations=2, max_iterations=20,\n"
+        "       max_seconds=1e9, checkpoint_dir=ck + '/p')\n"
+        "m = CheckpointManager(ck + '/m', async_save=False)\n"
+        "m.save(1, {'x': torch.ones(2, dtype=torch.bfloat16)})\n"
+        "assert m.restore({'x': torch.zeros(2, dtype=torch.bfloat16)})[1]['x'].dtype == torch.bfloat16\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_cpu_memory_planner_loads_neither_jax_nor_reference():
     """The memory planner, its store and K6's CPU path import nothing of
     JAX or the reference."""

@@ -278,11 +278,28 @@ def test_pack_routes_portfolio():
     ids=["checkpoint_dir", "resume", "on_checkpoint", "n_shards", "mesh"],
 )
 def test_later_slices_raise_not_implemented(kw, tmp_path):
+    """Sharded fleets (``n_shards > 1`` / ``mesh``) still wait for the
+    sharding slice and raise before any work; the checkpoint arguments are
+    ported (``tests/test_torch_resume.py``): a checkpointed run cuts its
+    snapshots and gives the plain run's result, and ``resume`` /
+    ``on_checkpoint`` without a directory change nothing, as in the
+    reference."""
+    prob = port.get_problem("CNV-W1A1")
+    budget = dict(device="cpu", max_generations=2, max_iterations=20, max_seconds=1e9)
+    if "n_shards" in kw or "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="slice"):
+            port.pack_portfolio(prob, checkpoint_dir=str(tmp_path / "ckpt"), **kw)
+        assert not (tmp_path / "ckpt").exists()
+        return
     if "checkpoint_dir" in kw:
         kw = dict(checkpoint_dir=str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="slice"):
-        port.pack_portfolio(port.get_problem("CNV-W1A1"), device="cpu", **kw)
-    assert not (tmp_path / "ckpt").exists()
+    got = port.pack_portfolio(prob, **budget, **kw)
+    want = port.pack_portfolio(prob, **budget)
+    assert (got.cost, got.solution.state_dict(), got.iterations) == (
+        want.cost, want.solution.state_dict(), want.iterations)
+    assert (tmp_path / "ckpt").exists() == ("checkpoint_dir" in kw)
+    if "checkpoint_dir" in kw:
+        assert list((tmp_path / "ckpt").glob("step_*/manifest.json"))
 
 
 def test_argument_checks_match_reference():
