@@ -72,6 +72,21 @@ no result line):
    resumed; each resumed record equal to the uninterrupted cuda run (the
    portfolio's wall-time-ordered merged trace aside, as in the reference's
    contract); snapshot bytes and seconds per save;
+6c. the packing service's main path, in a temporary store removed at the
+   end: ``PackingService("sa-s", backend="cuda")`` with phase 6a's SA-S
+   settings over 6a's 24 unique problems, 64 requests (Zipf a = 1.2,
+   Poisson at 200 Hz, seeds 0 and 1, 32 clients, every 8th request with a
+   1 ms deadline), micro-batches of up to 8: cold (launch counts reset just
+   before the pass and read just after: K3 and K4 only), a warm replay and
+   the same requests as one burst (memory cache: no solve, no launch), a
+   fresh service over the same store (no solve, no launch) and one more
+   cold pass under ``torch.profiler``; a GA-NFD service (K1 / K2 only) on
+   RN152-W1A2 and @U50 at seeds 0 and 1, each asked twice; every response
+   equal to phase 6a's record of its (accelerator, device, seed); then
+   ``tools/serve_traffic_torch.py --hetero --smoke`` killed by SIGKILL
+   after 8 responses, restarted (``--expect-warm --verify``) and run once
+   more (``--expect-no-solves --verify``); requests/s, latencies,
+   occupancy, hit rate and the device's busy share;
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -1140,17 +1155,19 @@ class TimedSwap:
             setattr(owner, attr, fn)
 
 
-def ops_timer(capture=False) -> TimedSwap:
+def ops_timer(capture=False, by_shape=False) -> TimedSwap:
     """Times every call the engines make to the ops layer
     (`population_costs`, `sa_step_deltas`).  A cuda call ends in a wait on
     its copy back, so its duration holds the copies, the launch and the
     kernel.  With ``capture`` it also keeps the first call's arguments per
-    (function, kinds or not): the kernels' inputs at the run's shapes."""
+    (function, kinds or not), and with ``by_shape`` per (function, kinds or
+    not, first plane's shape): the kernels' inputs at the run's shapes."""
     from repro_torch.kernels.binpack_fitness import ops as fops
     from repro_torch.kernels.binpack_sa_step import ops as sops
 
     def first_of(label, args, kwargs):
-        return label, kwargs.get("kinds") is not None or kwargs.get("old_k") is not None
+        key = label, kwargs.get("kinds") is not None or kwargs.get("old_k") is not None
+        return key + (tuple(args[0].shape),) if by_shape else key
 
     return TimedSwap([("population_costs", fops, "population_costs"),
                       ("sa_step_deltas", sops, "sa_step_deltas")],
@@ -1241,10 +1258,12 @@ def check_sweep(sw, label):
             raise AssertionError(f"{label}: cost bookkeeping disagrees")
 
 
-def check_dse_kernels(first, device) -> dict:
+def check_dse_kernels(first, device, where="the DSE sweep's") -> dict:
     """K1-K4 against their plain versions on the inputs the cuda sweeps
-    gave them (each group's first call), exactly; returns the largest
-    |kernel - plain| per kernel and the inputs as card tensors."""
+    gave them (each group's first call; ``ops_timer(capture=True)``'s
+    ``first``), exactly; returns the largest |kernel - plain| per kernel
+    and the inputs as card tensors.  ``where`` names the path in the
+    messages."""
     import numpy as np
     import torch
 
@@ -1309,13 +1328,13 @@ def check_dse_kernels(first, device) -> dict:
         got, want = c["kernel"](), c["plain"]()
         torch.cuda.synchronize()
         if got.dtype != torch.int64 or got.shape != want.shape:
-            raise AssertionError(f"{name} at the DSE shape {c['shape']}: {got.dtype} "
+            raise AssertionError(f"{name} at {where} shape {c['shape']}: {got.dtype} "
                                  f"{tuple(got.shape)} vs {tuple(want.shape)}")
         c["err"] = int((got - want).abs().max())
         if c["err"]:
-            raise AssertionError(f"{name} at the DSE shape {c['shape']}: "
+            raise AssertionError(f"{name} at {where} shape {c['shape']}: "
                                  f"max |kernel - plain| = {c['err']}")
-        print(f"[kernels] {name} at the DSE sweep's shape {c['shape']}: "
+        print(f"[kernels] {name} at {where} shape {c['shape']}: "
               f"max |kernel - plain| = {c['err']}")
     return cases
 
@@ -1338,7 +1357,7 @@ def dse_path(device) -> dict:
     probs, seeds, labels = dse_fleet()
     n_unique = len(probs) - len(DSE_RENAMED)
     launches = {name: 0 for name in KERNELS}
-    out = dict(records={}, sweeps={}, first={}, profile={})
+    out = dict(records={}, results={}, sweeps={}, first={}, profile={})
     for alg in DSE_ALGS:
         kw = dse_kwargs(alg)
         cache: dict = {}
@@ -1388,6 +1407,10 @@ def dse_path(device) -> dict:
             out["cached_candidates_per_sec"] = again.candidates_per_sec
         ops_s = sum(d for _, d in ops.calls)
         out["records"][alg] = sweep_key(sk)
+        # each (accelerator, device, seed)'s result: the service's oracle
+        out["results"][alg] = {}
+        for lab, r in zip(labels, sk.results):
+            out["results"][alg].setdefault(lab, r)
         out["first"].update(ops.first)
         out["sweeps"][alg] = o = dict(
             positions=len(probs), solved=sk.n_solved, groups=sk.n_groups,
@@ -1574,6 +1597,317 @@ def resume_path(device, dse, portfolio_key_cuda) -> dict:
     print(f"[resume] launches: {json.dumps(launches)}")
     print(f"[resume] phase took {time.perf_counter() - t_phase:.1f}s")
     return dict(launches=launches, runs=out)
+
+
+
+# ---------------------------------------------------------------- phase 6c
+# The packing service's traffic: phase 6a's 24 unique problems (the 8
+# Table-1 accelerators with no device, on ZU7EV and on U50) under a Zipf
+# popularity, Poisson arrivals, request seeds 0 and 1 (6a's), every 8th
+# request with a 1 ms deadline; solved with 6a's SA-S settings, so 6a's
+# records are the oracle.  GA-NFD: RN152-W1A2 and @U50 at seeds 0 and 1,
+# each asked twice, with 6a's GA settings.
+SERVE_TRAFFIC = dict(n_requests=64, rate_hz=200.0, zipf_a=1.2, n_seeds=2, seed=0)
+SERVE_CLIENTS = dict(concurrency=32, deadline_ms=1.0, deadline_every=8)
+SERVE_BATCHING = dict(max_batch=8, max_wait_ms=5.0, max_queue=64)
+SERVE_GA = tuple((PROBLEM, dev, s) for dev in (None, DEVICE_U50) for s in DSE_SEEDS) * 2
+# the kill lane: tools/serve_traffic_torch.py killed after this many responses
+SERVE_KILL_AFTER = 8
+
+
+def serve_corpus():
+    """Phase 6a's unique problems and their (accelerator, device) labels."""
+    import repro_torch.core as rc
+
+    labels = [(name, dev) for dev in DSE_DEVICES for name in rc.ACCELERATORS]
+    return [rc.get_problem(name, device=dev) for name, dev in labels], labels
+
+
+async def recorded_traffic(svc, probs, load, **clients):
+    """``run_traffic`` over ``load`` with launch counts set to 0 just before
+    and read just after; returns every response with its problem and seed,
+    the traffic's record and the counts."""
+    from repro_torch import kernels
+    from repro_torch.serve import PackingService, run_traffic
+
+    got = []
+
+    async def pack(prob, seed=0, deadline_ms=None):
+        res = await PackingService.pack(svc, prob, seed=seed, deadline_ms=deadline_ms)
+        got.append((prob, seed, res))
+        return res
+
+    svc.pack = pack
+    try:
+        kernels.reset_launch_counts()
+        res = await run_traffic(svc, probs, load, **clients)
+        return got, res, kernels.launch_counts()
+    finally:
+        del svc.pack
+
+
+def check_responses(got, want, label_of, what) -> int:
+    """Every response ``result_signature``-equal to ``want[(accelerator,
+    device, seed)]`` (phase 6a's cuda sweep); returns the number checked."""
+    from repro_torch.serve import result_signature
+
+    for prob, seed, res in got:
+        name, dev = label_of[id(prob)]
+        if result_signature(res) != result_signature(want[(name, dev, seed)]):
+            raise AssertionError(f"{what}: {name}@{dev} seed {seed} differs from "
+                                 "phase 6a's cuda record")
+    return len(got)
+
+
+def check_launches(counts, alg, what) -> None:
+    own = DSE_KERNELS[alg]
+    if any(counts[n] <= 0 for n in own) or any(v for n, v in counts.items() if n not in own):
+        raise AssertionError(f"{what}: launches {counts}, expected each of {own} only")
+
+
+def serve_pass_summary(out, stats) -> dict:
+    return dict(rps=out["rps"], wall_s=out["wall_s"], solved=stats["solved"],
+                batches=stats["batches"], occupancy=stats["batch_occupancy"]["mean"],
+                occupancy_counts=stats["batch_occupancy"]["counts"],
+                hit_rate=stats["hit_rate"], coalesced=stats["coalesced"],
+                mem_hits=stats["cache_hits_mem"], store_hits=stats["cache_hits_store"],
+                deadline_fallbacks=stats["deadline_fallbacks"],
+                solved_latency=stats["latency_solved"], cached_latency=stats["latency_cached"])
+
+
+def kill_lane(device, store) -> dict:
+    """``tools/serve_traffic_torch.py --hetero --smoke`` three times over one
+    store: killed by SIGKILL after ``SERVE_KILL_AFTER`` responses, then
+    restarted (some answers must come from the store, every unique task
+    equal to a standalone pack() on the host backend, ``python``: the
+    hetero corpus's BRAM18 / URAM288 inventories are held to the host code
+    there, not only cuda to cuda), then once more (no solve at all, equal
+    to a standalone pack() on the service's cuda backend).  Each child loads
+    the kernels this process built (`build.py`'s cache); they run one at a
+    time."""
+    import signal
+
+    cmd = [sys.executable, str(ROOT / "tools" / "serve_traffic_torch.py"),
+           "--device", device.type, "--hetero", "--smoke", "--store", str(store)]
+    runs = (("killed", ["--die-after", str(SERVE_KILL_AFTER)], -signal.SIGKILL),
+            ("restart", ["--expect-warm", "--verify", "--verify-backend", "python"], 0),
+            ("warm", ["--expect-no-solves", "--verify"], 0))
+    out = {}
+    for name, extra, rc_want in runs:
+        rec = store.with_name(f"{store.name}-{name}.json")
+        t = time.perf_counter()
+        proc = subprocess.run(cmd + extra + (["--out", str(rec)] if rc_want == 0 else []),
+                              capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t
+        if proc.returncode != rc_want:
+            raise AssertionError(f"kill lane {name}: exit {proc.returncode}, expected "
+                                 f"{rc_want}\n{proc.stdout}\n{proc.stderr}")
+        o = out[name] = dict(exit=proc.returncode, seconds=seconds)
+        if rc_want == 0:
+            r = json.loads(rec.read_text())
+            st = r["stats"]
+            if not r["parity"]["parity"]:
+                raise AssertionError(f"kill lane {name}: parity {r['parity']}")
+            o.update(rps=r["rps"], solved=st["solved"], store_hits=st["cache_hits_store"],
+                     mem_hits=st["cache_hits_mem"], coalesced=st["coalesced"],
+                     parity_tasks=r["parity"]["tasks"], parity_backend=r["verify_backend"])
+        else:
+            o["entries"] = len(list(store.glob("entry_*")))
+        print(f"[serve] kill lane {name}: exit {proc.returncode} in {seconds:.1f}s; "
+              + json.dumps({k: v for k, v in o.items() if k not in ("exit", "seconds")}))
+    return out
+
+
+def serve_path(device, dse) -> dict:
+    """The packing service's main path on the card, in a temporary store
+    directory removed at the end: the SA-S service (K3 / K4) over phase
+    6a's 24 problems, cold (launch counts set to 0 just before the pass and
+    read just after), a warm replay of the same traffic and the same
+    traffic as one burst (memory cache: no solve, no launch), a fresh
+    service over the same store (no solve, no launch, every unique task
+    from the store), and one more cold pass under ``torch.profiler``
+    (device busy share); a GA-NFD service (K1 / K2) on RN152-W1A2 and
+    @U50; the SIGKILL lane.  Every response must equal phase 6a's cuda
+    record of its (accelerator, device, seed).  The cold SA and the GA
+    passes keep the first ops-layer call per kernel and shape, and K1-K4
+    are held against their plain versions on those inputs afterwards;
+    returns each kernel's largest |kernel - plain| in ``errs``."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as rc
+    from repro_torch.serve import Arrival, PackingService, make_workload
+
+    t_phase = time.perf_counter()
+    probs, labels = serve_corpus()
+    label_of = {id(p): lab for p, lab in zip(probs, labels)}
+    traffic = dict(SERVE_TRAFFIC)
+    workload = make_workload(traffic.pop("n_requests"), len(probs), **traffic)
+    burst = [Arrival(0.0, a.prob_idx, a.seed) for a in workload]
+    n_unique = len({(a.prob_idx, a.seed) for a in workload})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    store = root / "store"
+    launches = {name: 0 for name in KERNELS}
+    out = {}
+    # (function, kinds or not, shape) -> the first ops-layer call's arguments
+    captured = {}
+
+    def service(alg, **kw):
+        return PackingService(alg, device=device, backend="cuda", **SERVE_BATCHING,
+                              **dse_kwargs(alg), **kw)
+
+    async def drive(svc, load):
+        return await recorded_traffic(svc, probs, load, **SERVE_CLIENTS)
+
+    # the cold pass's worker-lane time (each `solve_batch`), split into the
+    # fleet's start and finish, the ops layer (staging, copies, K3 / K4)
+    # and the SA steps' host code
+    lane = [("lane", rc.dse, "solve_batch")] + sweep_phases("sa-s")
+
+    async def cold_then_warm():
+        async with service("sa-s", store_dir=store) as svc:
+            with ops_timer(capture=True, by_shape=True) as ops, TimedSwap(lane) as host:
+                cold = await drive(svc, workload)
+            captured.update(ops.first)
+            cold_stats = svc.stats()
+            cold_stats["seconds"] = dict(host.seconds, ops=sum(d for _, d in ops.calls),
+                                         ops_calls=len(ops.calls))
+            warm = await drive(svc, workload)
+            warm_stats = svc.stats()
+            burst_run = await drive(svc, burst)
+            return cold, cold_stats, warm, warm_stats, burst_run, svc.stats()
+
+    async def once(**kw):
+        async with service("sa-s", **kw) as svc:
+            run = await drive(svc, workload)
+            return run, svc.stats()
+
+    want = dse["results"]["sa-s"]
+    try:
+        (got, res, nk), st, (got_w, res_w, nk_w), st_w, (got_b, res_b, nk_b), st_b = \
+            asyncio.run(cold_then_warm())
+        check_launches(nk, "sa-s", "serve sa-s cold")
+        n_checked = check_responses(got, want, label_of, "serve sa-s cold")
+        if st["solved"] != n_unique or st["requests"] != len(workload):
+            raise AssertionError(f"serve sa-s cold: {st['solved']} solved of {n_unique} "
+                                 f"unique tasks, {st['requests']} requests")
+        for what, g, s0, s1, n in (("warm replay", got_w, st, st_w, nk_w),
+                                   ("burst replay", got_b, st_w, st_b, nk_b)):
+            check_responses(g, want, label_of, f"serve sa-s {what}")
+            if (s1["solved"] != s0["solved"] or any(n.values())
+                    or s1["cache_hits_mem"] - s0["cache_hits_mem"] != len(workload)):
+                raise AssertionError(f"serve sa-s {what}: solved {s1['solved'] - s0['solved']}, "
+                                     f"launched {n}, not all from the memory cache")
+        for name, v in nk.items():
+            launches[name] += v
+        out["sa cold"] = serve_pass_summary(res, st)
+        out["sa warm"] = dict(rps=res_w["rps"], wall_s=res_w["wall_s"],
+                              latency=res_w["latency"])
+        out["sa warm burst"] = dict(rps=res_b["rps"], wall_s=res_b["wall_s"],
+                                    latency=res_b["latency"])
+        out["sa cold"]["client_latency"] = res["latency"]
+        sec = out["sa cold"]["seconds"] = st["seconds"]
+        sec["steps_host"] = sec["lane"] - sec["start"] - sec["finish"] - sec["ops"]
+        sec["off_lane"] = res["wall_s"] - sec["lane"]
+        entries = len(list(store.glob("entry_*")))
+        if entries != n_unique:
+            raise AssertionError(f"serve sa-s: {entries} store entries, {n_unique} tasks")
+
+        (got_r, res_r, nk_r), st_r = asyncio.run(once(store_dir=store))
+        check_responses(got_r, want, label_of, "serve sa-s store restart")
+        if (st_r["solved"] or any(nk_r.values()) or st_r["cache_hits_store"] != n_unique
+                or st_r["cache_hits_store"] + st_r["cache_hits_mem"] != len(workload)):
+            raise AssertionError(f"serve sa-s store restart: solved {st_r['solved']}, "
+                                 f"launched {nk_r}, store hits {st_r['cache_hits_store']}")
+        out["sa store restart"] = serve_pass_summary(res_r, st_r)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            (got_p, res_p, nk_p), st_p = asyncio.run(once())
+        check_launches(nk_p, "sa-s", "serve sa-s profiled")
+        check_responses(got_p, want, label_of, "serve sa-s profiled")
+        out["sa profiled"] = dict(rps=res_p["rps"], wall_s=res_p["wall_s"],
+                                  solved=st_p["solved"], batches=st_p["batches"])
+        out["sa profiled"]["profile"] = device_share(
+            prof, res_p["wall_s"] * 1e6, "serve sa-s cold pass (profiled)",
+            f"{len(workload)} requests, {st_p['solved']} solved in {st_p['batches']} batches")
+
+        # GA-NFD: RN152-W1A2 and @U50, seeds 0 and 1, each asked twice at once
+        ga_labels = [(PROBLEM, None), (PROBLEM, DEVICE_U50)]
+        ga_probs = [rc.get_problem(name, device=dev) for name, dev in ga_labels]
+        ga_load = [Arrival(0.0, ga_labels.index((name, dev)), s) for name, dev, s in SERVE_GA]
+
+        async def ga_pass():
+            async with service("ga-nfd") as svc:
+                with ops_timer(capture=True, by_shape=True) as ops:
+                    run = await recorded_traffic(svc, ga_probs, ga_load,
+                                                 concurrency=len(ga_load))
+                captured.update(ops.first)
+                return run, svc.stats()
+
+        (got_g, res_g, nk_g), st_g = asyncio.run(ga_pass())
+        check_launches(nk_g, "ga-nfd", "serve ga-nfd")
+        n_checked += check_responses(got_g, dse["results"]["ga-nfd"],
+                                     {id(p): lab for p, lab in zip(ga_probs, ga_labels)},
+                                     "serve ga-nfd")
+        if st_g["solved"] != len(set(SERVE_GA)):
+            raise AssertionError(f"serve ga-nfd: {st_g['solved']} solved")
+        for name, v in nk_g.items():
+            launches[name] += v
+        out["ga"] = serve_pass_summary(res_g, st_g)
+
+        # K1-K4 against their plain versions at every shape the service gave them
+        errs, shapes = {}, {}
+        for key, call in sorted(captured.items(), key=lambda kv: repr(kv[0])):
+            for name, c in check_dse_kernels({key[:2]: call}, device, "the service's").items():
+                errs[name] = max(errs.get(name, 0), c["err"])
+                shapes.setdefault(name, []).append(list(c["shape"]))
+        own = set(DSE_KERNELS["sa-s"] + DSE_KERNELS["ga-nfd"])
+        if set(errs) != own:
+            raise AssertionError(f"serve: kernels checked at the service's shapes "
+                                 f"{sorted(errs)}, expected {sorted(own)}")
+        out["kernel_shapes"] = shapes
+        out["kill lane"] = kill_lane(device, root / "kill")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def lat(d):
+        return f"p50 {d['p50_s'] * 1e3:.2f} / p99 {d['p99_s'] * 1e3:.2f} ms ({d['count']})"
+
+    c, r = out["sa cold"], out["sa store restart"]
+    print(f"[serve] sa-s x{len(workload)} requests over {len(probs)} problems "
+          f"({n_unique} unique tasks): every response equal to phase 6a's cuda record "
+          f"({n_checked} responses checked with the GA's)")
+    print(f"[serve] requests/s: cold {c['rps']:.2f} ({c['wall_s']:.2f}s), warm replay "
+          f"{out['sa warm']['rps']:.2f} (arrival-bound), warm burst "
+          f"{out['sa warm burst']['rps']:.2f}, store restart {r['rps']:.2f}, "
+          f"cold profiled {out['sa profiled']['rps']:.2f}")
+    sec = c["seconds"]
+    print(f"[serve] cold pass seconds: wall {c['wall_s']:.3f}, worker lane "
+          f"{sec['lane']:.3f} (fleet start {sec['start']:.3f}, SA steps' host code "
+          f"{sec['steps_host']:.3f}, ops layer {sec['ops']:.3f} over {sec['ops_calls']} "
+          f"calls, finish {sec['finish']:.3f}), lane idle {sec['off_lane']:.3f}")
+    print(f"[serve] latency: solved {lat(c['solved_latency'])}, cached "
+          f"{lat(c['cached_latency'])} (cold pass); store restart cached "
+          f"{lat(r['cached_latency'])}")
+    print(f"[serve] cold pass: {c['solved']} solves in {c['batches']} batches, occupancy "
+          f"{c['occupancy']:.3f} {json.dumps(c['occupancy_counts'])}, hit rate "
+          f"{c['hit_rate']:.3f} ({c['coalesced']} coalesced, {c['mem_hits']} memory), "
+          f"{c['deadline_fallbacks']} deadline fallbacks; launches {json.dumps(nk)}")
+    print(f"[serve] warm replay and burst: 0 solves, 0 launches, all from the memory "
+          f"cache; store restart: 0 solves, 0 launches, {r['store_hits']} from the "
+          f"store, {r['mem_hits']} from memory")
+    g = out["ga"]
+    print(f"[serve] ga-nfd x{len(SERVE_GA)} requests: {g['solved']} solves in "
+          f"{g['batches']} batches, {g['wall_s']:.2f}s, solved {lat(g['solved_latency'])}; "
+          f"equal to phase 6a's cuda records; launches {json.dumps(nk_g)}")
+    print(f"[serve] K1-K4 against their plain versions at the service's shapes "
+          f"{json.dumps(shapes)}: max |kernel - plain| {json.dumps(errs)}")
+    print(f"[serve] launches: {json.dumps(launches)}")
+    print(f"[serve] phase took {time.perf_counter() - t_phase:.1f}s")
+    return dict(launches=launches, runs=out, errs=errs)
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2428,12 +2762,15 @@ def profile_fused_calls(inputs, device, n: int = 30) -> dict:
     """``n`` fused ops calls (`portfolio_step`, backend cuda) on the
     portfolio's main-path inputs, each problem, under ``torch.profiler``:
     the host->device and device->host copies per recorded K5 launch (the
-    staged ops layer makes one each way per call).  The profiler drops the
-    first calls' device events, so the count starts at the first recorded
-    call whose copy in, K5 launch and copy out are all there; from there the
-    device's events, in time order, must be exactly (HtoD, K5, DtoH) once a
-    call, for at least half the calls, or this raises."""
-    from torch.profiler import ProfilerActivity, profile
+    staged ops layer makes one each way per call).  A fresh trace drops the
+    device events of its first milliseconds, so a warm-up step of ``n``
+    calls (the schedule's ``warmup``, recorded nowhere) turns the device
+    tracing on before the ``n`` counted calls; the count still starts at
+    the first recorded call whose copy in, K5 launch and copy out are all
+    there, and from there the device's events, in time order, must be
+    exactly (HtoD, K5, DtoH) once a call, for at least half the calls, or
+    this raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.binpack_portfolio_step import portfolio_step
 
@@ -2449,11 +2786,16 @@ def profile_fused_calls(inputs, device, n: int = 30) -> dict:
 
         for _ in range(5):
             call()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                call()
+        recorded = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: recorded.extend(p.events())) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    call()
+                prof.step()
         seq = []
-        for e in sorted((e for e in prof.events()
+        for e in sorted((e for e in recorded
                          if "CUDA" in str(getattr(e, "device_type", ""))),
                         key=lambda e: e.time_range.start):
             seq.append("HtoD" if "HtoD" in e.name else "DtoH" if "DtoH" in e.name
@@ -2550,6 +2892,9 @@ def main() -> int:
     for name, c in dse["cases"].items():
         errs[name] = max(errs[name], c["err"])
     resumed = resume_path(device, dse, portfolio["keys"][f"portfolio {PROBLEM}"])
+    serve = serve_path(device, dse)
+    for name, e in serve["errs"].items():
+        errs[name] = max(errs[name], e)
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
     dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
@@ -2563,7 +2908,7 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name],
                    "memory": memory["launches"][name], "dse": dse["launches"][name],
-                   "resume": resumed["launches"][name]}
+                   "resume": resumed["launches"][name], "serve": serve["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -2601,6 +2946,7 @@ def main() -> int:
     print(f"[memory] {json.dumps(dict(memory['summary'], profile=memory['profile']))}")
     print(f"[dse] {json.dumps(dict(dse['sweeps'], profile=dse['profile']))}")
     print(f"[resume] {json.dumps(resumed['runs'])}")
+    print(f"[serve] {json.dumps(serve['runs'])}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

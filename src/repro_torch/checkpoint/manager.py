@@ -57,15 +57,24 @@ def write_atomic_dir(
     manifest: dict,
     *,
     tmp: str | Path | None = None,
-) -> None:
+    replace: bool = True,
+) -> bool:
     """Publish ``{arrays.npz, manifest.json}`` atomically under ``final``.
 
-    Arrays go to ``arrays.npz``, the manifest is stamped with its sha256,
-    both land in a scratch dir that is ``os.rename``d into place — a crash
+    The integrity convention of every durable artifact of the port
+    (checkpoint steps, ``repro_torch.serve`` result-store entries): arrays
+    go to ``arrays.npz``, the manifest is stamped with its sha256, both
+    land in a scratch dir that is ``os.rename``d into place — a crash
     mid-write can leave a stray ``*.tmp*`` dir but never a half-written
-    ``final``.  An existing ``final`` is swapped out.  ``tmp`` overrides the
-    scratch path; the default carries pid + random bytes so concurrent
-    writers cannot collide on it.
+    ``final``.
+
+    ``replace=False`` is the concurrent-writer contract: when ``final``
+    already exists (another writer won the publish race) the scratch dir is
+    discarded and ``False`` is returned — an existing entry is never
+    touched.  With ``replace=True`` (the checkpoint-step behavior) an
+    existing ``final`` is swapped out and ``True`` returned.  ``tmp``
+    overrides the scratch path; the default carries pid + random bytes so
+    concurrent writers cannot collide on it.
     """
     final = Path(final)
     if tmp is None:
@@ -82,8 +91,20 @@ def write_atomic_dir(
         json.dumps({**manifest, "sha256": digest}, indent=2)
     )
     if final.exists():
+        if not replace:
+            shutil.rmtree(tmp, ignore_errors=True)
+            return False
         shutil.rmtree(final)
-    os.rename(tmp, final)
+    try:
+        os.rename(tmp, final)
+    except OSError:
+        if not replace and final.exists():
+            # lost the publish race between the exists() check and the
+            # rename: the other writer's entry stands, ours is discarded
+            shutil.rmtree(tmp, ignore_errors=True)
+            return False
+        raise
+    return True
 
 
 def read_atomic_dir(path: str | Path) -> tuple[dict, dict]:

@@ -7,7 +7,8 @@ the island portfolio's fused barriers through K5 equal to the host
 backend; K6 within float32 rounding of its plain version, the memory
 planner on the card equal to the host backend, and the DSE sweep (SA
 fleet through K3 / K4, GA lockstep through K1 / K2) equal to the host
-backend, also after a crash and a resume.
+backend, also after a crash and a resume; the packing service on the card
+(SA-S through K3 / K4) equal to a host-backend service.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -577,3 +578,45 @@ def test_dse_sweep_on_card_resumes_after_a_crash(tmp_path):
                      **kw)
     got = c.pack_sweep(probs, "sa-s", checkpoint_dir=tmp_path, resume=True, **kw)
     assert _sweep_record(got) == want
+
+
+@pytest.mark.gpu
+def test_packing_service_on_card_matches_host_backend(tmp_path):
+    """A `PackingService` on the card (``backend="cuda"``) answers a mixed,
+    heterogeneous set of micro-batched requests equal to a ``python``
+    backend service, launching K3 and K4 and nothing else; a restart over
+    its store answers every request with no solve and no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import asyncio
+
+    import repro_torch.core as c
+    from repro_torch.serve import PackingService, result_signature
+
+    probs = [c.get_problem(n, device=d) for n in ("CNV-W1A1", "CNV-W2A2")
+             for d in (None, "U50")]
+    reqs = [(p, s) for p in probs for s in (0, 1)] * 2
+    kw = dict(n_chains=4, max_iterations=200, max_seconds=1e9, patience=10**9,
+              max_batch=4, max_wait_ms=20.0, device="cuda")
+
+    def run(backend, **extra):
+        async def go():
+            async with PackingService("sa-s", backend=backend, **kw, **extra) as svc:
+                out = await asyncio.gather(*(svc.pack(p, seed=s) for p, s in reqs))
+                return [result_signature(r) for r in out], svc.stats()
+
+        kernels.reset_launch_counts()
+        out, stats = asyncio.run(go())
+        return out, stats, kernels.launch_counts()
+
+    got, stats, counts = run("cuda", store_dir=tmp_path)
+    need = ("sa_step_deltas_cuda", "sa_step_deltas_kinds_cuda")
+    assert all(counts[n] > 0 for n in need), counts
+    assert not any(v for n, v in counts.items() if n not in need), counts
+    assert stats["solved"] == len(reqs) // 2 and stats["batches"] < len(reqs) // 2
+    want, _, host_counts = run("python")
+    assert not any(host_counts.values())
+    assert got == want
+    warm, stats, counts = run("cuda", store_dir=tmp_path)
+    assert warm == got and stats["solved"] == 0 and not any(counts.values())
+    assert stats["cache_hits_store"] == len(reqs) // 2

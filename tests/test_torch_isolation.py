@@ -18,9 +18,11 @@ FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_no_jax_and_no_reference():
-    # the card-only test runs where there is no JAX, so it is held to the same rule
+    # the card-only test and the service's traffic CLI run where there is
+    # no JAX, so they are held to the same rule
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+        ROOT / "tools" / "serve_traffic_torch.py",
     ]
     assert len(files) > 10
     offenders = [
@@ -37,14 +39,26 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert not FORBIDDEN.search("import repro_torch")
 
 
-def test_cpu_pack_loads_neither_jax_nor_reference():
+def test_cpu_pack_loads_neither_jax_nor_reference(tmp_path):
+    """`pack`, and the packing service (micro-batched solves, its result
+    store, the traffic helpers) on top of it, import nothing of JAX or the
+    reference."""
     code = (
-        "import sys\n"
+        "import asyncio, sys\n"
         "import repro_torch.core as c\n"
+        "import repro_torch.serve as s\n"
         "p = c.get_problem('CNV-W1A1', device='ZU7EV')\n"
         "r = c.pack(p, 'ga-nfd', device='cpu', max_generations=3, max_seconds=1e9)\n"
         "r = c.pack(p, 'sa-s', device='cpu', n_chains=2, max_iterations=20, max_seconds=1e9)\n"
         "r.solution.validate()\n"
+        "async def serve():\n"
+        f"    async with s.PackingService('sa-s', store_dir={str(tmp_path)!r}, device='cpu',\n"
+        "                                n_chains=2, max_iterations=20, max_seconds=1e9) as svc:\n"
+        "        w = s.make_workload(6, 2, rate_hz=1e4)\n"
+        "        await s.run_traffic(svc, [p, c.get_problem('CNV-W2A2')], w)\n"
+        "        return svc.stats()\n"
+        "st = asyncio.run(serve())\n"
+        "assert st['solved'] >= 1 and st['store']['entries'] == st['solved'], st\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
