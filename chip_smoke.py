@@ -87,6 +87,25 @@ no result line):
    after 8 responses, restarted (``--expect-warm --verify``) and run once
    more (``--expect-no-solves --verify``); requests/s, latencies,
    occupancy, hit rate and the device's busy share;
+6d. sharded fleets, in a temporary directory removed at the end: on a
+   sweep mesh of every card where there are several, else of the one
+   card twice (``SweepMesh([cuda:0] * 2)``: the row split, the padding
+   and the pins on the card, no scaling across cards), 6a's 50-position
+   SA-S fleet at ``n_shards=4``, row-split on the mesh (K3 / K4 once per
+   mesh device per call) and on the mesh at ``n_shards=2`` (sub-fleets
+   pinned round-robin); 6a's BRAM18-only GA-NFD group at ``n_shards=3``
+   and 3 BRAM18 + 3 U50 problems on the mesh (225 stacked rows a call:
+   ragged, so the padding runs); the default-lineup portfolio on the mesh
+   on RN152-W1A2 and @U50, fused (K5 row-split); a 5-island SA-S
+   portfolio at ``n_shards=2`` and 1 (the split one unfused); the sharded
+   SA sweep and the split portfolio killed after snapshot 2 and resumed
+   at one shard.  Every record equal to 6a's, phase 5's or the unsplit
+   run's; launch counts reset just before each run and read just after
+   (only its own kernels, ``k`` per ops call on a k-device mesh); K1-K5
+   against their plain versions on the captured shard and mesh blocks and
+   each ops layer on the mesh at ragged row counts; wall time and
+   candidates/s per run beside 6a's; the ``n_shards=4`` sweep under
+   ``torch.profiler`` (the device's busy share);
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -1910,6 +1929,425 @@ def serve_path(device, dse) -> dict:
     return dict(launches=launches, runs=out, errs=errs)
 
 
+# ---------------------------------------------------------------- phase 6d
+# Sharded fleets: phase 6a's fleet, settings and published widths at
+# n_shards > 1 and on a sweep mesh (distinct cards where the machine has
+# several, else two logical shards of its one card).  Per-problem
+# trajectories do not depend on the fleet's composition, so 6a's cuda
+# records are the oracle of every sweep and phase 5's of every portfolio:
+# nothing unsharded is solved again.
+SHARD_SA = 4  # SA-S sub-fleets
+SHARD_GA = 3  # GA-NFD sub-packs of 6a's BRAM18-only group
+SHARD_MESH_SA = 2  # SA-S sub-fleets pinned round-robin to the mesh
+# GA-NFD on the mesh: 3 BRAM18 + 3 U50 problems, so each group's stacked
+# call has 3 x 75 rows, ragged on a 2-shard mesh (the padding runs)
+SHARD_GA_MESH = tuple((name, dev, 0) for dev in (None, DEVICE_U50)
+                      for name in ("CNV-W1A1", "RN50-W1A2", PROBLEM))
+# the portfolio split into sub-fleets: 5 SA-S islands on RN152-W1A2
+SHARD_PORTFOLIO = dict(PORTFOLIO, n_islands=5, algorithms=("sa-s",))
+SHARD_PORTFOLIO_SPLIT = 2
+SHARD_KERNELS = {
+    "sa-s": DSE_KERNELS["sa-s"],
+    "ga-nfd": DSE_KERNELS["ga-nfd"],
+    "ga-nfd bram18": ("binpack_fitness_cuda",),
+    "portfolio": ("portfolio_step_cuda", "binpack_fitness_cuda", "sa_step_deltas_cuda"),
+    "portfolio u50": ("portfolio_step_kinds_cuda", "binpack_fitness_kinds_cuda",
+                      "sa_step_deltas_kinds_cuda"),
+    "portfolio sa-s": ("sa_step_deltas_cuda",),
+}
+# the plane arguments each ops layer takes by keyword
+OPS_PLANE_KW = {"population_costs": ("kinds",), "sa_step_deltas": ("old_k", "new_k")}
+
+
+def shard_mesh(device):
+    """The phase's mesh: every card where there are several, else the one
+    card twice."""
+    import torch
+
+    from repro_torch.launch import SweepMesh, make_sweep_mesh
+
+    if torch.cuda.device_count() > 1:
+        mesh = make_sweep_mesh()
+        return mesh, f"{len(mesh.devices)} distinct cards"
+    return SweepMesh([device] * 2), "2 logical shards of one card"
+
+
+def shard_ops_timer() -> TimedSwap:
+    """Times every call to the three ops layers and keeps the first call's
+    arguments per (function, kinds or not, first plane's shape, on a mesh
+    or not)."""
+    from repro_torch.kernels.binpack_fitness import ops as fops
+    from repro_torch.kernels.binpack_portfolio_step import ops as pops
+    from repro_torch.kernels.binpack_sa_step import ops as sops
+
+    def first_of(label, args, kwargs):
+        hetero = kwargs.get("kinds") is not None or kwargs.get("old_k") is not None
+        return label, hetero, tuple(args[0].shape), kwargs.get("mesh") is not None
+
+    return TimedSwap([("population_costs", fops, "population_costs"),
+                      ("sa_step_deltas", sops, "sa_step_deltas"),
+                      ("portfolio_step", pops, "portfolio_step")], first_of=first_of)
+
+
+def shard_blocks(fn, args, kw, k):
+    """The ``(args, kwargs)`` of each of the ``k`` row blocks that an ops
+    call on a k-device mesh gives its kernels: every plane flattened to
+    2-D and zero-padded to k equal blocks (`kernels/probshard.py`; the
+    fused step pads its two halves apart).  ``k = 1``: the call whole."""
+    import numpy as np
+
+    from repro_torch.kernels.probshard import pad_rows
+
+    def split(planes):
+        flat = [None if p is None else np.reshape(p, (-1, np.shape(p)[-1])) for p in planes]
+        padded, _ = pad_rows(flat, k)
+        n = len(padded[0]) // k
+        return [[None if p is None else p[i * n:(i + 1) * n] for p in padded]
+                for i in range(k)]
+
+    if fn == "portfolio_step":
+        pops = split([args[0], args[1], kw.get("kinds")])
+        steps = split(list(args[2:6]) + [kw.get("old_k"), kw.get("new_k")])
+        return [(tuple(p[:2] + s[:4]), dict(kw, kinds=p[2], old_k=s[4], new_k=s[5]))
+                for p, s in zip(pops, steps)]
+    names = OPS_PLANE_KW[fn]
+    blocks = split(list(args) + [kw.get(n) for n in names])
+    return [(tuple(b[:len(args)]), dict(kw, **dict(zip(names, b[len(args):]))))
+            for b in blocks]
+
+
+def check_portfolio_block(args, kw, device) -> tuple[str, int]:
+    """K5a / K5b on one block of a fused ops call, on the card, against
+    the plain version; returns (kernel name, max |kernel - plain|)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.problem import BRAM18_MODES
+    from repro_torch.kernels.binpack_portfolio_step import (
+        portfolio_step_cuda, portfolio_step_kinds_cuda,
+        portfolio_step_kinds_ref, portfolio_step_ref,
+    )
+
+    def dev(a):
+        a = np.ascontiguousarray(a, dtype=np.int32)
+        return torch.from_numpy(a.reshape(-1, a.shape[-1])).to(device)
+
+    w, h = dev(args[0]), dev(args[1])
+    step = [dev(a) for a in args[2:6]]
+    if kw.get("kinds") is not None:
+        kt, k = kw["kind_tables"], dev(kw["kinds"])
+        ow, oh, nw, nh = step
+        step = (ow, oh, dev(kw["old_k"]), nw, nh, dev(kw["new_k"]))
+        name = "portfolio_step_kinds_cuda"
+        got = portfolio_step_kinds_cuda(w, h, k, *step, kt)
+        want = portfolio_step_kinds_ref(w, h, k, *step, kt)
+    else:
+        modes = kw.get("modes") or BRAM18_MODES
+        name = "portfolio_step_cuda"
+        got = portfolio_step_cuda(w, h, *step, modes)
+        want = portfolio_step_ref(w, h, *step, modes)
+    torch.cuda.synchronize()
+    err = 0
+    for g, x in zip(got, want):
+        if g.shape != x.shape or g.dtype != torch.int64:
+            raise AssertionError(f"{name} on a mesh block: {tuple(g.shape)} {g.dtype} "
+                                 f"vs {tuple(x.shape)}")
+        err = max(err, int((g - x).abs().max()) if g.numel() else 0)
+    if err:
+        raise AssertionError(f"{name} on a mesh block: max |kernel - plain| = {err}")
+    return name, err
+
+
+def check_shard_kernels(captured, device, k) -> tuple[dict, dict]:
+    """K1-K5 against their plain versions on every captured call's blocks
+    (a mesh call's k row blocks, a pinned shard's call whole); returns each
+    kernel's largest |kernel - plain| and the block shapes checked."""
+    errs, shapes = {}, {}
+    for (fn, hetero, _, on_mesh), (args, kw) in sorted(captured.items(),
+                                                       key=lambda kv: repr(kv[0])):
+        where = f"a sharded run's {'mesh block' if on_mesh else 'shard'}"
+        for bargs, bkw in shard_blocks(fn, args, kw, k if on_mesh else 1):
+            if fn == "portfolio_step":
+                name, err = check_portfolio_block(bargs, bkw, device)
+                found = {name: dict(err=err, shape=(tuple(bargs[0].shape),
+                                                    tuple(bargs[2].shape)))}
+            else:
+                found = check_dse_kernels({(fn, hetero): (bargs, bkw)}, device, where)
+            for name, c in found.items():
+                errs[name] = max(errs.get(name, 0), c["err"])
+                shapes.setdefault(name, [])
+                if list(c["shape"]) not in shapes[name]:
+                    shapes[name].append(list(c["shape"]))
+    return errs, shapes
+
+
+def ragged_mesh_checks(captured, mesh, device) -> list:
+    """Each ops layer through the kernels on the mesh at row counts that
+    are no multiple of the mesh size (so the zero padding runs on the
+    card): every captured mesh call, its planes flattened to 2-D and each
+    half cut by one row where it split evenly, against the plain result of
+    the same rows unsharded (host numpy; for K1 / K2 the plain PyTorch
+    version on the card).  Returns ``[fn, kinds, rows(, chain rows)]``."""
+    import numpy as np
+
+    from repro_torch.kernels.binpack_fitness.ops import population_costs
+    from repro_torch.kernels.binpack_portfolio_step.ops import portfolio_step
+    from repro_torch.kernels.binpack_sa_step.ops import sa_step_deltas
+    from repro_torch.kernels.probshard import mesh_size
+
+    k = mesh_size(mesh)
+    fns = dict(population_costs=(population_costs, "torch"),
+               sa_step_deltas=(sa_step_deltas, "python"),
+               portfolio_step=(portfolio_step, "python"))
+
+    def ragged(planes):
+        flat = [None if p is None else np.reshape(p, (-1, np.shape(p)[-1])) for p in planes]
+        n = len(flat[0])
+        n = n - 1 if n % k == 0 and n > 1 else n
+        return [None if p is None else p[:n] for p in flat], n
+
+    done = []
+    for (fn, hetero, _, on_mesh), (args, kw) in sorted(captured.items(),
+                                                       key=lambda kv: repr(kv[0])):
+        if not on_mesh:
+            continue
+        kw = dict(kw)
+        if fn == "portfolio_step":
+            (w, h, kinds), rows = ragged([args[0], args[1], kw.get("kinds")])
+            (ow, oh, nw, nh, ok, nk), chains = ragged(
+                list(args[2:6]) + [kw.get("old_k"), kw.get("new_k")])
+            args = (w, h, ow, oh, nw, nh)
+            kw.update(kinds=kinds, old_k=ok, new_k=nk)
+            sizes = [rows, chains]
+        else:
+            names, n_args = OPS_PLANE_KW[fn], len(args)
+            planes, rows = ragged(list(args) + [kw.get(n) for n in names])
+            args = tuple(planes[:n_args])
+            kw.update(zip(names, planes[n_args:]))
+            sizes = [rows]
+        if any(n % k == 0 for n in sizes):
+            raise AssertionError(f"{fn}: rows {sizes} split evenly over {k} shards")
+        call, plain = fns[fn]
+        got = call(*args, **dict(kw, backend="cuda", device=device, mesh=mesh))
+        want = call(*args, **dict(kw, backend=plain, device=device, mesh=None))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{fn} on the mesh at ragged rows {sizes}: cuda != plain")
+        done.append([fn, bool(hetero)] + sizes)
+    if {d[0] for d in done} != {key[0] for key in captured if key[3]}:
+        raise AssertionError(f"ragged mesh checks ran for {done} only")
+    return done
+
+
+def shard_path(device, dse, portfolio) -> dict:
+    """Sharded fleets on the card: 6a's 50-position fleet at published
+    widths through `pack_sweep` at ``n_shards=4``, row-split on the mesh,
+    and on the mesh at ``n_shards=2`` (SA-S); 6a's BRAM18-only group at
+    ``n_shards=3`` and 3 BRAM18 + 3 U50 problems on the mesh (GA-NFD); the
+    default-lineup portfolio on the mesh, fused (K5 row-split), on
+    RN152-W1A2 and @U50; a 5-island SA-S portfolio at ``n_shards=2`` and
+    1; a sharded SA sweep and the split portfolio killed after snapshot 2
+    and resumed at one shard, in a temporary directory removed at the end.
+    Every record must equal its oracle (6a's, phase 5's, or the unsplit
+    run's).  Launch counts are set to 0 just before each run and read just
+    after: only the run's own kernels, ``k`` per ops call on a k-device
+    mesh and one per call otherwise.  K1-K5 are held against their plain
+    versions on the captured shard and mesh blocks, and each ops layer at a
+    ragged row count on the mesh.  The ``n_shards=4`` SA sweep runs under
+    ``torch.profiler``: the device's busy share."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as rc
+    from repro_torch import kernels
+    from repro_torch.kernels.probshard import mesh_size
+
+    t_phase = time.perf_counter()
+    probs, seeds, labels = dse_fleet()
+    mesh, what = shard_mesh(device)
+    k = mesh_size(mesh)
+    print(f"[shard] mesh {mesh!r}: {what}")
+    launches = {name: 0 for name in KERNELS}
+    captured, out = {}, {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+
+    def run(label, go, own, per_call):
+        """One run: counts reset just before and read just after, the ops
+        calls timed and captured; only ``own`` kernels may launch, exactly
+        ``per_call`` times per ops call."""
+        kernels.reset_launch_counts()
+        with shard_ops_timer() as ops:
+            t = time.perf_counter()
+            result = go()
+            wall = time.perf_counter() - t
+        nk = kernels.launch_counts()
+        captured.update(ops.first)
+        if any(nk[n] <= 0 for n in own) or any(v for n, v in nk.items() if n not in own):
+            raise AssertionError(f"shard {label}: launches {nk}, expected each of {own} only")
+        if sum(nk.values()) != per_call * len(ops.calls):
+            raise AssertionError(f"shard {label}: {sum(nk.values())} launches for "
+                                 f"{len(ops.calls)} ops calls, expected {per_call} each")
+        for name, v in nk.items():
+            launches[name] += v
+        out[label] = dict(wall_s=wall, launches=nk, ops_calls=len(ops.calls),
+                          ops_s=sum(d for _, d in ops.calls))
+        return result
+
+    def pf(dev, **kw):
+        return rc.pack(rc.get_problem(PROBLEM, device=dev), "portfolio", seed=0,
+                       backend="cuda", device=device,
+                       **{**rc.hyperparams(PROBLEM), **PORTFOLIO, **kw})
+
+    def sweep(sub, alg, **kw):
+        return rc.pack_sweep([probs[i] for i in sub], alg, seeds=[seeds[i] for i in sub],
+                             backend="cuda", device=device, **dse_kwargs(alg), **kw)
+
+    def check_records(sw, sub, alg, label):
+        check_sweep(sw, label)
+        want = dse["results"][alg]
+        for i, r in zip(sub, sw.results):
+            if result_key(r) != result_key(want[labels[i]]):
+                raise AssertionError(f"shard {label}: {labels[i]} differs from phase 6a's")
+        out[label].update(candidates=len(sub), solved=sw.n_solved,
+                          candidates_per_sec=sw.candidates_per_sec,
+                          n_shards=sw.params["n_shards"])
+
+    every = list(range(len(probs)))
+    profiled = {}
+
+    def sa_sweep(profiled_run=False, **kw):
+        if not profiled_run:
+            return sweep(every, "sa-s", **kw)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sw = sweep(every, "sa-s", **kw)
+        profiled["n_shards"] = prof, sw
+        return sw
+
+    try:
+        # --- SA-S, all 50 positions; the n_shards=4 sweep under
+        # torch.profiler (the device's busy share)
+        for label, kw, per_call in (
+                (f"sa-s n_shards={SHARD_SA} (profiled)",
+                 dict(n_shards=SHARD_SA, profiled_run=True), 1),
+                ("sa-s mesh", dict(mesh=mesh), k),
+                (f"sa-s mesh n_shards={SHARD_MESH_SA}", dict(mesh=mesh, n_shards=SHARD_MESH_SA),
+                 1)):
+            sw = run(label, lambda kw=kw: sa_sweep(**kw), SHARD_KERNELS["sa-s"], per_call)
+            check_records(sw, every, "sa-s", label)
+            if sweep_key(sw) != dse["records"]["sa-s"]:
+                raise AssertionError(f"shard {label}: the sweep differs from phase 6a's")
+        prof, sw = profiled["n_shards"]
+        key = f"shard sa-s n_shards={SHARD_SA} x{len(probs)}"
+        out["profile"] = device_share(prof, sw.wall_time_s * 1e6, key,
+                                      f"{sw.n_solved} candidates")
+        # --- GA-NFD: 6a's BRAM18-only group split, and 3 + 3 on the mesh
+        bram18 = [i for i, (_, dev, _) in enumerate(labels[:len(labels) - len(DSE_RENAMED)])
+                  if dev is None]
+        label = f"ga-nfd bram18 n_shards={SHARD_GA}"
+        sw = run(label, lambda: sweep(bram18, "ga-nfd", n_shards=SHARD_GA),
+                 SHARD_KERNELS["ga-nfd bram18"], 1)
+        check_records(sw, bram18, "ga-nfd", label)
+        mixed = [labels.index(lab) for lab in SHARD_GA_MESH]
+        label = "ga-nfd 3 + 3 mesh"
+        sw = run(label, lambda: sweep(mixed, "ga-nfd", mesh=mesh), SHARD_KERNELS["ga-nfd"], k)
+        check_records(sw, mixed, "ga-nfd", label)
+        # --- portfolio: the default lineup on the mesh, fused
+        for dev in (None, DEVICE_U50):
+            plabel = f"portfolio {PROBLEM}{'@' + dev if dev else ''}"
+            label = f"{plabel} mesh"
+            r = run(label, lambda dev=dev: pf(dev, mesh=mesh),
+                    SHARD_KERNELS["portfolio u50" if dev else "portfolio"], k)
+            if portfolio_key(r) != portfolio["keys"][plabel] or r.params["fused"] is not True:
+                raise AssertionError(f"shard {label}: differs from phase 5's run or did not "
+                                     f"fuse (fused={r.params['fused']})")
+            out[label].update(barriers=r.params["barriers"], fused=r.params["fused"],
+                              seconds_phase5=portfolio["runs"][plabel]["seconds"]["cuda"])
+        # --- a 5-island SA-S portfolio split into sub-fleets
+        split = {}
+        for n in (1, SHARD_PORTFOLIO_SPLIT):
+            label = f"portfolio sa-s x5 n_shards={n}"
+            split[n] = run(label, lambda n=n: pf(None, **SHARD_PORTFOLIO, n_shards=n),
+                           SHARD_KERNELS["portfolio sa-s"], 1)
+            out[label].update(barriers=split[n].params["barriers"],
+                              fused=split[n].params["fused"])
+        base_key = portfolio_key(split[1])
+        if portfolio_key(split[SHARD_PORTFOLIO_SPLIT]) != base_key:
+            raise AssertionError("shard portfolio sa-s x5: the split run differs")
+        if split[SHARD_PORTFOLIO_SPLIT].params["fused"] is not False:
+            raise AssertionError("shard portfolio sa-s x5: a split fleet fused")
+        # --- resume across shard counts
+        label = f"resume sa-s n_shards={SHARD_SA} -> 1"
+
+        def killed_then_resumed():
+            ck = dict(checkpoint_dir=root / "sa", checkpoint_every=RESUME_EVERY["sa-s"])
+            try:
+                sweep(every, "sa-s", n_shards=SHARD_SA,
+                      on_checkpoint=kill_after(RESUME_KILL_AFTER), **ck)
+                raise AssertionError(f"shard {label}: the run was not killed")
+            except Killed:
+                pass
+            return sweep(every, "sa-s", n_shards=1, resume=True, **ck)
+
+        sw = run(label, killed_then_resumed, SHARD_KERNELS["sa-s"], 1)
+        check_sweep(sw, label)
+        if sweep_key(sw) != dse["records"]["sa-s"]:
+            raise AssertionError(f"shard {label}: differs from phase 6a's sweep")
+        label = f"resume portfolio sa-s x5 n_shards={SHARD_PORTFOLIO_SPLIT} -> 1"
+
+        def portfolio_killed_then_resumed():
+            ck = dict(SHARD_PORTFOLIO, checkpoint_dir=root / "portfolio",
+                      checkpoint_every=RESUME_EVERY["portfolio"])
+            try:
+                pf(None, n_shards=SHARD_PORTFOLIO_SPLIT,
+                   on_checkpoint=kill_after(RESUME_KILL_AFTER), **ck)
+                raise AssertionError(f"shard {label}: the run was not killed")
+            except Killed:
+                pass
+            return pf(None, n_shards=1, resume=True, **ck)
+
+        r = run(label, portfolio_killed_then_resumed, SHARD_KERNELS["portfolio sa-s"], 1)
+        # the merged trace orders improvements by wall time, which restarts
+        # on resume: outside the resume contract, as in phase 6b
+        if portfolio_key(r)[:4] + portfolio_key(r)[5:] != base_key[:4] + base_key[5:]:
+            raise AssertionError(f"shard {label}: differs from the uninterrupted run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    errs, shapes = check_shard_kernels(captured, device, k)
+    if set(errs) != set(KERNELS) - {GATHER}:
+        raise AssertionError(f"shard: kernels checked on the captured blocks {sorted(errs)}")
+    ragged = ragged_mesh_checks(captured, mesh, device)
+    for label, o in out.items():
+        if label == "profile":
+            continue
+        extra = ""
+        if "candidates" in o:
+            alg = "ga-nfd" if label.startswith("ga") else "sa-s"
+            six = dse["sweeps"][alg]
+            extra = (f", {o['candidates_per_sec']:.3f} candidates/s (6a n_shards=1: "
+                     f"{six['seconds']['cuda']:.3f}s for {six['solved']}, "
+                     f"{six['candidates_per_sec']['cuda']:.3f}/s)")
+        elif "seconds_phase5" in o:
+            extra = f" (phase 5 unsharded: {o['seconds_phase5']:.3f}s)"
+        ran = {n: v for n, v in o["launches"].items() if v}
+        print(f"[shard] {label}: wall {o['wall_s']:.3f}s{extra}; {o['ops_calls']} ops calls "
+              f"{o['ops_s']:.3f}s; launches {json.dumps(ran)}"
+              + (f"; fused={o['fused']} barriers={o['barriers']}" if "fused" in o else ""))
+    print(f"[shard] every record equal to its oracle (6a's sweeps, phase 5's portfolios, "
+          f"the unsplit portfolio; resumed runs too)")
+    print(f"[shard] K1-K5 against their plain versions on the captured blocks "
+          f"{json.dumps(shapes)}: max |kernel - plain| {json.dumps(errs)}")
+    print(f"[shard] ragged rows on the {k}-shard mesh (fn, kinds, rows[, chain rows]), "
+          f"cuda == plain: {json.dumps(ragged)}")
+    print(f"[shard] launches: {json.dumps(launches)}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[shard] phase took {seconds:.1f}s")
+    return dict(launches=launches, runs=out, errs=errs, shapes=shapes, ragged=ragged,
+                mesh=repr(mesh), seconds=seconds)
+
+
 # ----------------------------------------------------------------- phase 7
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
@@ -2895,6 +3333,9 @@ def main() -> int:
     serve = serve_path(device, dse)
     for name, e in serve["errs"].items():
         errs[name] = max(errs[name], e)
+    shard = shard_path(device, dse, portfolio)
+    for name, e in shard["errs"].items():
+        errs[name] = max(errs[name], e)
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
     dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
@@ -2908,7 +3349,8 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name],
                    "memory": memory["launches"][name], "dse": dse["launches"][name],
-                   "resume": resumed["launches"][name], "serve": serve["launches"][name]}
+                   "resume": resumed["launches"][name], "serve": serve["launches"][name],
+                   "sharded": shard["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -2947,6 +3389,7 @@ def main() -> int:
     print(f"[dse] {json.dumps(dict(dse['sweeps'], profile=dse['profile']))}")
     print(f"[resume] {json.dumps(resumed['runs'])}")
     print(f"[serve] {json.dumps(serve['runs'])}")
+    print(f"[shard] {json.dumps({k: shard[k] for k in ('mesh', 'seconds', 'runs', 'ragged')})}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

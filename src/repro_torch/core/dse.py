@@ -41,19 +41,29 @@ parity-testable sweeps use iteration budgets (``max_iterations`` /
 ``max_generations`` with a huge ``max_seconds``), which freeze each problem
 at exactly the same trajectory point as its standalone run.
 
-Not ported yet (``NotImplementedError``): ``n_shards > 1`` and ``mesh``
-(the reference's sub-fleet sharding and device meshes) come with the
-sharding slice.
+Scaling past one fleet: ``n_shards`` splits each batched group into that
+many contiguous sub-fleets (SA) / lockstep sub-packs (GA), advanced
+concurrently on host threads; ``mesh`` (a `launch.mesh.SweepMesh`)
+row-shards each kernel call over its devices (one shard) or pins the
+sub-fleets to them round-robin (several).  Both are execution-shape knobs
+only: per-problem trajectories do not depend on the fleet's composition,
+so every shard count and mesh is bit-identical to ``n_shards=1``, and
+snapshots are cut in one canonical merged layout that resumes at any
+other shard count.  On a one-card machine a mesh is k logical shards of
+that card (``SweepMesh([cuda:0] * k)``): it runs the row split and the
+pinning, not a scaling across cards.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
 
 from ..device import resolve_device
+from ..kernels.probshard import mesh_devices
 from .ga import (
     lockstep_apply,
     lockstep_begin,
@@ -226,9 +236,10 @@ def _group_by_cost_model(indices, problems) -> list[list[int]]:
 def shard_chunks(n: int, k: int) -> list[list[int]]:
     """Contiguous balanced split of ``range(n)`` into ``min(k, n)`` chunks.
 
-    The first ``n % k`` chunks carry one extra row.  Contiguity is what
-    lets a snapshot cut at one shard count restore at another in the
-    reference; the port runs one shard until the sharding slice.
+    The first ``n % k`` chunks carry one extra row.  Contiguity is
+    load-bearing: shard boundaries become plain row slices of the canonical
+    merged checkpoint layout (``resume.merge_block_states``), so snapshots
+    restore onto ANY shard count.
     """
     k = max(1, min(int(k), n))
     base, rem = divmod(n, k)
@@ -240,29 +251,108 @@ def shard_chunks(n: int, k: int) -> list[list[int]]:
     return out
 
 
-def _check_unsharded(n_shards, mesh) -> int:
+def check_shards(n_shards, mesh, device) -> int:
+    """Validate the two execution-shape knobs against the caller's
+    ``device`` (``None`` means ``"cuda"``): ``n_shards >= 1``, and a mesh
+    that is a ``("prob",)`` sweep mesh of ``device``'s type (work never
+    moves to a device the caller did not name).  Returns ``n_shards``."""
     n_shards = int(n_shards)
     if n_shards < 1:
         raise ValueError("n_shards must be >= 1")
-    if n_shards > 1 or mesh is not None:
-        raise NotImplementedError(
-            "sharded sweeps (n_shards > 1 / mesh) are not ported yet: they "
-            "come with the sharding slice"
-        )
+    if mesh is not None:
+        mesh_devices(mesh, "cuda" if device is None else device)
     return n_shards
+
+
+def _shard_devices(mesh, n_chunks: int, backend: str):
+    """Round-robin device pins for host-split shards (``n_shards > 1`` AND
+    a mesh): shard ``i`` dispatches on ``devices[i % len]``.  With one
+    chunk the mesh row-shards each kernel call instead, and the ``python``
+    backend launches nothing."""
+    if mesh is None or n_chunks <= 1 or backend not in ("torch", "cuda"):
+        return None
+    return list(mesh_devices(mesh))
+
+
+def _run_threads(fn, items) -> None:
+    """``fn(item)`` for every item, on one thread each when there are
+    several; an exception in any thread propagates."""
+    if len(items) <= 1:
+        for item in items:
+            fn(item)
+        return
+    with ThreadPoolExecutor(max_workers=len(items)) as ex:
+        for _ in ex.map(fn, items):
+            pass
+
+
+def _solve_sa_group_sharded(
+    packer, probs, rngs, backend, n_shards, mesh, gkeys=None, ck=None
+) -> list:
+    """One cost-model group annealed as ``n_shards`` concurrent sub-fleets.
+
+    Each shard is a contiguous problem slice started as its own
+    `_block_start` block (pinned to its mesh device, if any) and advanced
+    on a thread; per-problem trajectories are fleet-composition-independent
+    (each live problem consumes only its own RNG stream and frozen problems
+    never draw), so results are bit-identical to the one-fleet lane.
+    Checkpoints are cut in the canonical MERGED layout
+    (`resume.merge_block_states`), identical to the unsharded snapshot, so a
+    crashed sharded sweep may resume at any other shard count.
+    """
+    chunks = shard_chunks(len(probs), n_shards)
+    shard_mesh = mesh if len(chunks) == 1 else None
+    devices = _shard_devices(mesh, len(chunks), backend)
+    sts = [
+        packer._block_start(
+            [probs[j] for j in c], [rngs[j] for j in c],
+            [[] for _ in c], backend, mesh=shard_mesh,
+            device=None if devices is None else devices[si % len(devices)],
+        )
+        for si, c in enumerate(chunks)
+    ]
+    gd = None
+    if ck is not None:
+        from .resume import group_digest, merge_block_states
+
+        gd = group_digest(gkeys)
+        ck.restore_block_shards(gd, sts, packer.patience)
+
+    while not all(st.done for st in sts):
+        if ck is None:
+            limit = None  # each shard drains to its budgets in one call
+        else:
+            it = max(st.it for st in sts if not st.done)
+            limit = (it // ck.every + 1) * ck.every
+        _run_threads(lambda st: packer._block_run(st, limit),
+                     [st for st in sts if not st.done])
+        if ck is not None and not all(st.done for st in sts):
+            arrays, extra = merge_block_states(sts)
+            ck.save_progress(group=gd, arrays=arrays, engine=extra)
+    blocks = []
+    for st in sts:
+        blocks.extend(packer._block_finish(st))
+    return blocks
 
 
 def _solve_sa_groups(
     packer, groups, problems, seeds, backend, keys=None, ck=None,
+    n_shards=1, mesh=None,
 ) -> dict[int, PackingResult]:
     out: dict[int, PackingResult] = {}
     for group in groups:
         probs = [problems[i] for i in group]
         rngs = [np.random.default_rng(seeds[i]) for i in group]
         packer._hetero = probs[0].n_kinds > 1
-        if ck is None:
+        if n_shards > 1 and len(group) > 1:
+            gkeys = [keys[i] for i in group] if keys is not None else None
+            blocks = _solve_sa_group_sharded(
+                packer, probs, rngs, backend, n_shards, mesh,
+                gkeys=gkeys, ck=ck,
+            )
+        elif ck is None:
             blocks = packer._anneal_block(
-                probs, rngs, [[] for _ in group], backend
+                probs, rngs, [[] for _ in group], backend, mesh=mesh
             )
         else:
             # checkpointed lane: same start/run/finish phases, but paused at
@@ -272,7 +362,9 @@ def _solve_sa_groups(
             from .resume import encode_block_state, group_digest
 
             gd = group_digest([keys[i] for i in group])
-            st = packer._block_start(probs, rngs, [[] for _ in group], backend)
+            st = packer._block_start(
+                probs, rngs, [[] for _ in group], backend, mesh=mesh
+            )
             ck.restore_block(gd, st)  # overwrite from snapshot if it matches
             while not st.done:
                 packer._block_run(st, (st.it // ck.every + 1) * ck.every)
@@ -293,18 +385,22 @@ def _solve_sa_groups(
     return out
 
 
-def _lockstep_drain(pairs, gen_limit=None) -> bool:
+def _lockstep_drain(pairs, gen_limit=None, mesh=None, device=None) -> bool:
     """One lockstep generation through the GA segment API — identical to
     ``ga.lockstep_generation`` (which wraps the same phases), written out so
     the sweep lane exercises the begin/apply/finish contract the portfolio's
-    fused barrier dispatch builds on."""
+    fused barrier dispatch builds on.  The stacked fitness calls go to
+    ``device`` (default: the packer's; a sub-pack pinned to a mesh device
+    passes its own, never writing it to the packer its threads share),
+    row-sharded over ``mesh``."""
     advanced, batches = lockstep_begin(pairs, gen_limit)
     for batch in batches:
         packer, run, _ = batch[0]
         lockstep_apply(
             batch,
             stacked_population_costs(
-                [r for _, r, _ in batch], run.backend, packer.device
+                [r for _, r, _ in batch], run.backend,
+                packer.device if device is None else device, mesh=mesh,
             ),
         )
     return lockstep_finish(advanced)
@@ -312,6 +408,7 @@ def _lockstep_drain(pairs, gen_limit=None) -> bool:
 
 def _solve_ga_groups(
     packer, groups, problems, seeds, backend, keys=None, ck=None,
+    n_shards=1, mesh=None,
 ) -> dict[int, PackingResult]:
     out: dict[int, PackingResult] = {}
     for group in groups:
@@ -321,16 +418,38 @@ def _solve_ga_groups(
             )
             for i in group
         ]
-        totals = stacked_population_costs(runs, backend, packer.device)
+        chunks = shard_chunks(len(runs), n_shards)
+        shard_mesh = mesh if len(chunks) == 1 else None
+        devices = _shard_devices(mesh, len(chunks), backend)
+        totals = stacked_population_costs(
+            runs, backend, packer.device, mesh=shard_mesh
+        )
         for run, tot in zip(runs, totals):
             packer._eval_init(run, tot)
         # drive the GA segment API directly (ga.lockstep_begin / apply /
         # finish): per generation, one mutation phase across every live run,
-        # one stacked fitness call per population-size batch, then selection
-        pairs = [(packer, run) for run in runs]
-        if ck is None:
-            while _lockstep_drain(pairs):
+        # one stacked fitness call per population-size batch, then
+        # selection.  With ``n_shards > 1`` the group's runs split into
+        # contiguous lockstep sub-packs, each drained on its own thread:
+        # fitness values are per-individual, so stack membership never
+        # changes any trajectory.
+        pair_chunks = [[(packer, runs[j]) for j in c] for c in chunks]
+
+        def drain_chunk(ci, glimit):
+            device = None if devices is None else devices[ci % len(devices)]
+            while _lockstep_drain(pair_chunks[ci], glimit, mesh=shard_mesh,
+                                  device=device):
                 pass
+
+        def drain_all(glimit):
+            live = [
+                ci for ci, c in enumerate(chunks)
+                if any(not runs[j].done for j in c)
+            ]
+            _run_threads(lambda ci: drain_chunk(ci, glimit), live)
+
+        if ck is None:
+            drain_all(None)
         else:
             from .resume import encode_ga_group, group_digest
 
@@ -341,8 +460,7 @@ def _solve_ga_groups(
                 if not live:
                     break
                 glimit = (min(live) // ck.every + 1) * ck.every
-                while _lockstep_drain(pairs, glimit):
-                    pass
+                drain_all(glimit)
                 if all(run.done for run in runs):
                     break
                 arrays, extras = encode_ga_group(runs)
@@ -360,7 +478,7 @@ def _solve_ga_groups(
 def _solve_positions(
     todo, problems, seeds, algorithm, *, seed=0, max_seconds=30.0,
     intra_layer=False, backend="auto", device=None, keys=None, ck=None,
-    hyper=None,
+    n_shards=1, mesh=None, hyper=None,
 ) -> tuple[dict[int, PackingResult], int]:
     """Solve the given positions of ``problems`` through the right lane.
 
@@ -387,16 +505,19 @@ def _solve_positions(
         groups = _group_by_cost_model(todo, problems)
         solved = _solve_sa_groups(
             packer, groups, problems, seeds, resolved, keys=keys, ck=ck,
+            n_shards=n_shards, mesh=mesh,
         )
     elif algorithm in _GA_LOCKSTEP and resolved in _GA_DEVICE_BACKENDS:
         groups = _group_by_cost_model(todo, problems)
         solved = _solve_ga_groups(
             packer, groups, problems, seeds, resolved, keys=keys, ck=ck,
+            n_shards=n_shards, mesh=mesh,
         )
     else:
         # serial lane: scalar engines, the GA on python, heuristics,
-        # portfolio.  Checkpoint granularity here is whole candidates: each
-        # finished solve is durable, an in-flight one restarts from scratch.
+        # portfolio (``n_shards`` / ``mesh`` do not apply).  Checkpoint
+        # granularity here is whole candidates: each finished solve is
+        # durable, an in-flight one restarts from scratch.
         groups = [[i] for i in todo]
         for i in todo:
             solved[i] = _pack(
@@ -440,8 +561,8 @@ def solve_batch(
     order.  Mixed batches split into one group per cost model.  Each result
     is identical to the standalone ``pack(problems[i], algorithm,
     seed=seeds[i], ...)`` run.  ``device`` as in :func:`api.pack`
-    (``None`` means ``"cuda"``); ``n_shards > 1`` / ``mesh`` raise
-    ``NotImplementedError`` (the sharding slice).
+    (``None`` means ``"cuda"``); ``n_shards`` and ``mesh`` as in
+    :func:`pack_sweep`.
     """
     problems = list(problems)
     if not problems:
@@ -449,12 +570,12 @@ def solve_batch(
     algorithm = algorithm.lower()
     seeds = _seed_list(problems, seed, seeds)
     hyper = normalize_hyper(algorithm, hyper)
-    _check_unsharded(n_shards, mesh)
+    n_shards = check_shards(n_shards, mesh, device)
     device = resolve_device(device)
     solved, _ = _solve_positions(
         range(len(problems)), problems, seeds, algorithm, seed=seed,
         max_seconds=max_seconds, intra_layer=intra_layer, backend=backend,
-        device=device, hyper=hyper,
+        device=device, n_shards=n_shards, mesh=mesh, hyper=hyper,
     )
     return [solved[i] for i in range(len(problems))]
 
@@ -510,8 +631,23 @@ def pack_sweep(
     ``on_checkpoint(step)`` fires after each durable write.  Resumed
     candidates count as cache hits, not fresh solves.
 
-    ``n_shards > 1`` and ``mesh`` raise ``NotImplementedError`` (the
-    sharding slice).
+    Scaling past one fleet (execution shape only, never answers):
+
+    * ``n_shards`` — split each batched group into that many contiguous
+      sub-fleets (SA) / lockstep sub-packs (GA), advanced concurrently on
+      host threads.  Per-problem trajectories are fleet-composition-
+      independent, so any shard count is **bit-identical** to
+      ``n_shards=1``; checkpoints are cut in a canonical merged layout, so
+      a crashed sharded sweep resumes at any other shard count (and in the
+      reference).  ``params["n_shards"]`` holds the requested count.
+    * ``mesh`` — a 1-D ``("prob",)`` `launch.mesh.SweepMesh` of
+      ``device``'s type (another type raises ``ValueError``).  With
+      ``n_shards=1`` every kernel call is row-split over the mesh's
+      devices, one launch each; with ``n_shards > 1`` the sub-fleets are
+      pinned round-robin to them instead.  Device backends (``torch`` /
+      ``cuda``) only; ``python`` and the serial lane ignore it.  On one
+      card, ``SweepMesh([cuda:0] * k)`` runs k logical shards of it: the
+      row split and the pinning, not a scaling across cards.
     """
     problems = list(problems)
     if not problems:
@@ -519,7 +655,7 @@ def pack_sweep(
     algorithm = algorithm.lower()
     seeds = _seed_list(problems, seed, seeds)
     hyper = normalize_hyper(algorithm, hyper)
-    n_shards = _check_unsharded(n_shards, mesh)
+    n_shards = check_shards(n_shards, mesh, device)
     device = resolve_device(device)
     t_start = time.perf_counter()
 
@@ -558,7 +694,8 @@ def pack_sweep(
         solved, n_groups = _solve_positions(
             rep.values(), problems, seeds, algorithm, seed=seed,
             max_seconds=max_seconds, intra_layer=intra_layer,
-            backend=backend, device=device, keys=keys, ck=ck, hyper=hyper,
+            backend=backend, device=device, keys=keys, ck=ck,
+            n_shards=n_shards, mesh=mesh, hyper=hyper,
         )
         for i, res in solved.items():
             results_by_key[keys[i]] = res

@@ -308,11 +308,12 @@ class GeneticPacker:
         )
 
     # ---------------------------------------------------------------- eval
-    def _batched_costs(self, run: "_GARun") -> np.ndarray:
+    def _batched_costs(self, run: "_GARun", mesh=None) -> np.ndarray:
         """One generation's population totals on ``self.device`` (float64
-        holding exact integers, as the reference's batched path)."""
+        holding exact integers, as the reference's batched path); ``mesh``
+        row-shards the call over a sweep mesh."""
         return _population_totals(
-            run.W, run.H, run.Km, run, run.backend, self.device
+            run.W, run.H, run.Km, run, run.backend, self.device, mesh=mesh
         )
 
     # ---------------------------------------------------------------- pack
@@ -588,14 +589,17 @@ class GeneticPacker:
         return self._finish_run(run)
 
 
-def _population_totals(W, H, Km, run: "_GARun", backend: str, device) -> np.ndarray:
+def _population_totals(
+    W, H, Km, run: "_GARun", backend: str, device, mesh=None
+) -> np.ndarray:
     """Population totals of ``(..., NB)`` geometry under ``run``'s mode
-    tables, as float64 holding exact integers."""
+    tables, as float64 holding exact integers; ``mesh`` row-shards the
+    call."""
     from ..kernels.binpack_fitness.ops import population_costs
 
     totals = population_costs(
         W, H, modes=run.modes0, backend=backend, kinds=Km,
-        kind_tables=run.kt, device=device,
+        kind_tables=run.kt, device=device, mesh=mesh,
     )
     return np.asarray(totals, dtype=np.float64)
 
@@ -622,13 +626,14 @@ def stack_geometry(runs: Sequence["_GARun"]):
 
 
 def stacked_population_costs(
-    runs: Sequence["_GARun"], backend: str, device
+    runs: Sequence["_GARun"], backend: str, device, mesh=None
 ) -> np.ndarray:
     """One leading-axis ``(A, n_pop)`` fitness call over several GA runs on
     ``device`` (see :func:`stack_geometry` for the padding contract); the
-    portfolio's island loop stacks its GA islands through it."""
+    DSE's lockstep lane and the portfolio's island loop stack through it.
+    ``mesh`` (a ``("prob",)`` sweep mesh) row-shards the stacked call."""
     W, H, Km = stack_geometry(runs)
-    return _population_totals(W, H, Km, runs[0], backend, device)
+    return _population_totals(W, H, Km, runs[0], backend, device, mesh=mesh)
 
 
 def lockstep_begin(
@@ -691,6 +696,7 @@ def lockstep_finish(advanced: Sequence[tuple]) -> bool:
 def lockstep_generation(
     pairs: Sequence[tuple[GeneticPacker, "_GARun"]],
     gen_limit: int | None = None,
+    mesh=None,
 ) -> bool:
     """Advance ONE generation for every live (packer, run) pair in lockstep.
 
@@ -700,12 +706,13 @@ def lockstep_generation(
     stream, so every trajectory is bit-identical to the standalone
     ``pack()`` loop.  ``gen_limit`` pauses runs at a portfolio barrier;
     budget/patience/wall exhaustion marks ``run.done``.  Returns True while
-    any pair advanced."""
+    any pair advanced.  ``mesh`` row-shards each stacked fitness call over a
+    ``("prob",)`` sweep mesh (bit-identical; device backends only)."""
     advanced, batches = lockstep_begin(pairs, gen_limit)
     for batch in batches:
         packer, run, _ = batch[0]
         totals = stacked_population_costs(
-            [r for _, r, _ in batch], run.backend, packer.device
+            [r for _, r, _ in batch], run.backend, packer.device, mesh=mesh
         )
         lockstep_apply(batch, totals)
     return lockstep_finish(advanced)

@@ -43,15 +43,25 @@ copy back, so no result is read before its own launch has finished and no
 buffer of one thread is written by the other's launch.  The launch counters
 take a lock (`kernels.build.count_launch`).
 
+**Sharded fleets.**  ``n_shards`` splits the SA fleet's islands into
+contiguous sub-fleets, one block state each, advanced concurrently on
+threads at every barrier; ``mesh`` (a `launch.mesh.SweepMesh`) row-splits
+each fleet step and GA fitness call over its devices (one shard) or pins
+the sub-fleets to them round-robin (several).  Both are execution-shape
+knobs only — each island consumes only its own RNG stream, so any shard
+count and mesh is bit-identical to the one-fleet layout, and snapshots
+resume across shard counts.  Fused dispatch needs the fleet in one piece,
+so a split fleet runs unfused.  On a one-card machine a mesh is k logical
+shards of that card: it runs the row split and the pinning, not a scaling
+across cards.
+
 **Crash safety.**  With ``checkpoint_dir`` the run cuts a durable snapshot
 (`core.resume.PortfolioCheckpointer`) every ``checkpoint_every`` barriers;
 ``resume=True`` restarts from the newest intact one.  The snapshot is the
 reference's, so a run checkpointed by either package resumes in the other.
 
-Left out of this port so far: sub-fleet sharding and device meshes
-(``n_shards > 1`` / ``mesh`` raise ``NotImplementedError``, the sharding
-slice), and the reference's wall-clock thread-pool baseline
-``pack_portfolio_threads``.
+Left out of this port so far: the reference's wall-clock thread-pool
+baseline ``pack_portfolio_threads``.
 """
 from __future__ import annotations
 
@@ -64,6 +74,7 @@ from typing import Sequence
 import numpy as np
 
 from ..device import resolve_device
+from .dse import _run_threads, _shard_devices, check_shards, shard_chunks
 from .ga import (
     GeneticPacker,
     lockstep_apply,
@@ -133,28 +144,66 @@ class IslandSpec:
 
 # --------------------------------------------------------------- island views
 class _SAFleetGroup:
-    """K same-problem sa-s islands advanced as ONE fleet (one shard).
+    """K same-problem sa-s islands advanced as ONE fleet.
 
     Row ``j * C + c`` is chain ``c`` of island ``j``; the bin-slot envelope
     is widened to ``prob.n`` so any migrant packing can be encoded into a
-    chain slot (envelope padding never affects trajectories).  ``st`` is
-    the fleet's one block state, which `core.resume.PortfolioCheckpointer`
-    encodes and restores in the layout of the reference's one-shard
-    fleet."""
+    chain slot (envelope padding never affects trajectories).
 
-    def __init__(self, packer, prob, rngs, backend):
+    ``n_shards`` splits the islands into contiguous sub-fleets, one block
+    state per shard (``sts``), advanced concurrently on threads at every
+    barrier; ``mesh`` row-shards each fleet step over a ``("prob",)`` sweep
+    mesh (with one shard) or pins the sub-fleets round-robin to the mesh's
+    devices (with several), each pin held in its block state.  Both are
+    execution-shape knobs only: each island consumes only its own RNG
+    stream, so any shard count is bit-identical to the one-fleet layout.
+    `core.resume.PortfolioCheckpointer` saves the shards in the canonical
+    merged layout of the reference's fleet."""
+
+    def __init__(self, packer, prob, rngs, backend, n_shards=1, mesh=None):
         self.packer = packer
-        self.st = packer._block_start(
-            [prob] * len(rngs), rngs, [[] for _ in rngs], backend, n_slots=prob.n,
-        )
+        chunks = shard_chunks(len(rngs), n_shards)
+        shard_mesh = mesh if len(chunks) == 1 else None
+        devices = _shard_devices(mesh, len(chunks), backend)
+        self.sts = [
+            packer._block_start(
+                [prob] * len(c), [rngs[j] for j in c], [[] for _ in c],
+                backend, n_slots=prob.n, mesh=shard_mesh,
+                device=None if devices is None else devices[si % len(devices)],
+            )
+            for si, c in enumerate(chunks)
+        ]
+        self._starts = [c[0] for c in chunks]
+
+    @property
+    def st(self):
+        """The lone block state of an unsharded fleet (the common case and
+        the fused-dispatch requirement); a split fleet has no single state
+        — address islands through :meth:`state_of`."""
+        if len(self.sts) != 1:
+            raise RuntimeError(
+                f"fleet is split into {len(self.sts)} shards; use state_of(j)"
+            )
+        return self.sts[0]
+
+    def state_of(self, j: int):
+        """(block state, local row) owning island ``j``."""
+        for st, lo in zip(reversed(self.sts), reversed(self._starts)):
+            if j >= lo:
+                return st, j - lo
+        raise IndexError(j)
+
+    def _run_shard(self, st, limit: int | None) -> None:
+        if not st.done:
+            self.packer._block_run(st, limit)
 
     def advance(self, limit: int | None) -> bool:
-        st = self.st
-        if st.done:
+        live = [st for st in self.sts if not st.done]
+        if not live:
             return False
-        before = st.it
-        self.packer._block_run(st, limit)
-        return st.it > before
+        before = [st.it for st in live]
+        _run_threads(lambda st: self._run_shard(st, limit), live)
+        return any(st.it > b for st, b in zip(live, before))
 
 
 class _FleetIsland:
@@ -167,18 +216,20 @@ class _FleetIsland:
         self.eliminated = False
 
     def done(self) -> bool:
-        st = self.group.st
-        return st.done or self.packer._block_frozen(st, self.j)
+        st, j = self.group.state_of(self.j)
+        return st.done or self.packer._block_frozen(st, j)
 
     def extend(self, it_limit: int) -> None:
-        self.packer._block_extend(self.group.st, it_limit)
+        st, _ = self.group.state_of(self.j)
+        self.packer._block_extend(st, it_limit)
 
     def eliminate(self) -> None:
-        self.packer._block_eliminate(self.group.st, self.j)
+        st, j = self.group.state_of(self.j)
+        self.packer._block_eliminate(st, j)
         self.eliminated = True
 
     def raw(self) -> tuple[int, int]:
-        st, j = self.group.st, self.j
+        st, j = self.group.state_of(self.j)
         cost = int(st.gbest_cost[j])
         if st.hetero:
             ovf = int(st.batch.overflow_rows(
@@ -189,43 +240,49 @@ class _FleetIsland:
         return cost, ovf
 
     def best_solution(self) -> Solution:
-        st, j = self.group.st, self.j
+        st, j = self.group.state_of(self.j)
         return decode_chain_items(
             st.probs[j], st.g_items[j], st.g_counts[j],
             st.g_kinds[j] if st.hetero else None,
         )
 
     def migrate_in(self, sol: Solution) -> bool:
-        return self.packer._block_migrate(self.group.st, self.j, sol)
+        st, j = self.group.state_of(self.j)
+        return self.packer._block_migrate(st, j, sol)
 
     def trace(self) -> list:
-        return self.group.st.traces[self.j]
+        st, j = self.group.state_of(self.j)
+        return st.traces[j]
 
     def offset(self, t0: float) -> float:
-        return self.group.st.t_start - t0
+        st, _ = self.group.state_of(self.j)
+        return st.t_start - t0
 
     def iterations(self) -> int:
-        st, c = self.group.st, self.packer.n_chains
-        return int(st.steps[self.j * c : (self.j + 1) * c].sum())
+        (st, j), c = self.group.state_of(self.j), self.packer.n_chains
+        return int(st.steps[j * c : (j + 1) * c].sum())
 
     def truncated(self) -> bool:
         """True iff the fleet stopped on the wall-clock cap — done, but
         neither frozen (patience) nor out of iteration budget."""
         if self.eliminated:
             return False
-        st = self.group.st
+        st, _ = self.group.state_of(self.j)
         return st.done and not st.frozen and st.it < self.packer.max_iterations
 
 
 class _GAGroup:
-    """All GA islands, advanced in lockstep with stacked fitness calls."""
+    """All GA islands, advanced in lockstep with stacked fitness calls;
+    ``mesh`` row-shards each stacked call over a ``("prob",)`` sweep mesh
+    (execution shape only, bit-identical)."""
 
-    def __init__(self, pairs):
+    def __init__(self, pairs, mesh=None):
         self.pairs = pairs  # [(packer, run)] in island order
+        self.mesh = mesh
 
     def advance(self, limit: int | None) -> bool:
         progressed = False
-        while lockstep_generation(self.pairs, gen_limit=limit):
+        while lockstep_generation(self.pairs, gen_limit=limit, mesh=self.mesh):
             progressed = True
         return progressed
 
@@ -565,7 +622,7 @@ def _advance_fused(
     unfused one.  Returns (fleet_progressed, ga_progressed)."""
     from ..kernels.binpack_portfolio_step.ops import portfolio_step
 
-    packer, st = fleet.packer, fleet.st
+    packer, st = fleet.packer, fleet.st  # fusing needs the fleet in one shard
     before = st.it
     gen = None if st.done else packer._block_gen(st, fleet_limit)
     req = next(gen, None) if gen is not None else None
@@ -583,7 +640,7 @@ def _advance_fused(
                 modes=st.modes0, backend=st.backend,
                 kinds=Km, old_k=old_k, new_k=new_k,
                 kind_tables=st.kt if old_k is not None else None,
-                device=packer.device,
+                device=st.device, mesh=st.mesh,
             )
             lockstep_apply(batch, totals)
             batches = []
@@ -595,7 +652,8 @@ def _advance_fused(
             lockstep_apply(
                 batch,
                 stacked_population_costs(
-                    [r for _, r, _ in batch], r0.backend, p0.device
+                    [r for _, r, _ in batch], r0.backend, p0.device,
+                    mesh=ga.mesh,
                 ),
             )
         if lockstep_finish(advanced):
@@ -681,19 +739,22 @@ def pack_portfolio(
     ``"gI+gJ:fused"``) attribute the wall time; they are diagnostics, not
     part of the parity contract.
 
-    Not ported yet (``NotImplementedError``): ``n_shards > 1`` / ``mesh``
-    (the sharding slice).
+    Scaling past one fleet: ``n_shards`` splits the SA fleet into
+    contiguous sub-fleets advanced concurrently on host threads between
+    barriers, and ``mesh`` (a `launch.mesh.SweepMesh` of ``device``'s
+    type) row-splits each fleet step and GA fitness call over its devices
+    (one shard) or pins the sub-fleets round-robin to them (several).  Both
+    are execution-shape knobs only: every shard count and mesh is
+    **bit-identical** to the default, and snapshots are cut in the
+    canonical merged fleet layout, so a run may resume at a different
+    shard count.  Fused dispatch needs the fleet in one piece, so
+    ``n_shards > 1`` turns it off (``params["fused"] is False``).  On one
+    card, ``SweepMesh([cuda:0] * k)`` runs k logical shards of it: the
+    row split and the pinning, not a scaling across cards.
     """
     from .api import make_packer  # late import: api imports this module lazily
 
-    n_shards = int(n_shards)
-    if n_shards < 1:
-        raise ValueError("n_shards must be >= 1")
-    if n_shards > 1 or mesh is not None:
-        raise NotImplementedError(
-            "sharded portfolio fleets (n_shards > 1 / mesh) are not ported "
-            "yet: they come with the sharding slice"
-        )
+    n_shards = check_shards(n_shards, mesh, device)
     device = resolve_device(device)
     if not auto and (race_grid is not None or race_budget is not None):
         raise ValueError("race_grid/race_budget require auto=True")
@@ -778,7 +839,9 @@ def pack_portfolio(
             run = packer._start_run(
                 prob, np.random.default_rng(packer.seed), None, resolved
             )
-            packer._eval_init(run)
+            packer._eval_init(
+                run, packer._batched_costs(run, mesh=mesh) if run.batched else None
+            )
             ga_pairs.append((packer, run))
             adapters[k] = _GAIsland(packer, run)
             continue
@@ -797,13 +860,15 @@ def pack_portfolio(
         groups.append(isl)
         adapters[k] = isl
     if ga_pairs:
-        groups.append(_GAGroup(ga_pairs))
+        groups.append(_GAGroup(ga_pairs, mesh=mesh))
     for members in fleet_members.values():
         fleet = _SAFleetGroup(
             members[0][1],
             prob,
             [np.random.default_rng(p.seed) for _, p in members],
             members[0][1]._resolve_backend(),
+            n_shards=n_shards,
+            mesh=mesh,
         )
         groups.append(fleet)
         for j, (k, _) in enumerate(members):
@@ -878,10 +943,11 @@ def pack_portfolio(
     fuse = (
         scheduler == "concurrent" and fi is not None and gi is not None
         and sum(isinstance(g, _SAFleetGroup) for g in groups) == 1
+        and len(groups[fi].sts) == 1  # fused dispatch needs one fleet shard
         and (
             fused if fused is not None
             else (
-                groups[fi].st.backend in device_backends
+                groups[fi].sts[0].backend in device_backends
                 and all(r.backend in device_backends and r.batched
                         for _, r in groups[gi].pairs)
             )

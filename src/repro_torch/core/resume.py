@@ -37,10 +37,11 @@ converges to the bit-identical final result.  Wall-clock fields (trace
 timestamps, ``wall_time_s``) restart on resume and are exempt from the
 parity contract.
 
-Not ported yet: the reference's ``merge_block_states`` /
-``restore_block_shards`` (snapshots of a fleet split into shards) come
-with the sharding slice; an unsharded fleet's snapshot is laid out exactly
-as their one-shard case.
+A fleet split into shards (``n_shards > 1``) is snapshotted in ONE
+canonical merged layout (`merge_block_states`), field for field the
+unsharded fleet's, and restored onto any contiguous shard split
+(`restore_block_shards`): a run saved at one shard count resumes at any
+other, in either package.
 """
 from __future__ import annotations
 
@@ -254,15 +255,130 @@ def restore_block_state(st, arrays: dict, extra: dict) -> None:
     st.t_start = time.perf_counter()
 
 
-def restore_fleet_state(st, arrays: dict, extra: dict, patience: int) -> None:
-    """`restore_block_state` for a portfolio's fleet, with ``frozen`` and
-    ``done`` recomputed from the restored patience counters as the
-    reference's ``restore_block_shards`` does for its one-shard case (a
-    fleet that froze in its last step before the barrier is frozen, even if
-    its loop had not yet looked)."""
-    restore_block_state(st, arrays, extra)
-    st.frozen = bool(np.all(np.asarray(st.stale) >= patience))
-    st.done = st.frozen or bool(extra["done"])
+# fields concatenated on the chain-row (R) axis; everything else in the
+# block codec concatenates on the problem (P) axis
+_ROW_FIELDS = frozenset({
+    "items", "counts", "bw", "bh", "live", "costs", "best_pcosts",
+    "stale", "steps", "pcosts", "bk", "UK",
+})
+# pad fill for widened trailing envelope dims (-1 = the empty-item sentinel
+# of encode_chain_items; every other field pads with zeros)
+_PAD_FILL = {"items": -1, "g_items": -1}
+
+
+def _pad_tail(arr: np.ndarray, tail: tuple, fill) -> np.ndarray:
+    """Widen an array's trailing dims to ``tail`` (leading axis untouched)."""
+    shape = (arr.shape[0],) + tail
+    if arr.shape == shape:
+        return arr
+    out = np.full(shape, fill, dtype=arr.dtype)
+    out[tuple(slice(0, s) for s in arr.shape)] = arr
+    return out
+
+
+def merge_block_states(sts) -> tuple[dict, dict]:
+    """Merge per-shard `_BlockState`s into ONE canonical (arrays, extra).
+
+    The sharded sweep / portfolio lanes split a batched group into
+    contiguous sub-fleets, synchronized at common iteration barriers.  This
+    merges their states into a payload laid out **exactly** like
+    :func:`encode_block_state` of the equivalent unsharded fleet: shard
+    envelopes pad to the group envelope (max bin-slot and item-capacity
+    dims — trailing empty slots never change a trajectory), rows
+    concatenate in group order, ``it`` is the barrier (the max — a shard
+    that froze early stops counting, but frozen rows never change, so the
+    gap is inert), and ``done`` / ``frozen`` are the fleet-wide
+    conjunctions.  A snapshot written at one shard count therefore
+    restores at ANY other: `restore_block_state` consumes it unsharded,
+    :func:`restore_block_shards` slices it back onto shards.
+    """
+    encoded = [encode_block_state(st) for st in sts]
+    cls = type(sts[0])
+    hetero = bool(sts[0].hetero)
+    fields = cls.CODEC_ARRAYS + (cls.CODEC_ARRAYS_HETERO if hetero else ())
+    arrays: dict = {}
+    for f in fields:
+        parts = [e[0][f] for e in encoded]
+        tail = tuple(
+            max(p.shape[d] for p in parts) for d in range(1, parts[0].ndim)
+        )
+        fill = _PAD_FILL.get(f, 0)
+        arrays[f] = np.concatenate(
+            [_pad_tail(p, tail, fill) for p in parts], axis=0
+        )
+    extra = {
+        "it": max(int(e["it"]) for _, e in encoded),
+        "done": all(bool(e["done"]) for _, e in encoded),
+        "frozen": all(bool(e["frozen"]) for _, e in encoded),
+        "hetero": hetero,
+        "n_rows": sum(int(e["n_rows"]) for _, e in encoded),
+        "rngs": [r for _, e in encoded for r in e["rngs"]],
+        "traces": [t for _, e in encoded for t in e["traces"]],
+    }
+    return arrays, extra
+
+
+def restore_block_shards(sts, arrays: dict, extra: dict, patience: int) -> None:
+    """Slice one canonical fleet snapshot onto freshly-started shard states.
+
+    The inverse of :func:`merge_block_states`, for any shard count (one
+    included): shard ``i`` gets the canonical payload's rows / problems at
+    its contiguous offsets.  Shard envelopes may be narrower than the
+    canonical one — the restored shard keeps the canonical (wider) arrays,
+    since trailing empty bin slots never alter trajectories (the kernels
+    take any width and an empty slot costs 0).  Every shard restores
+    ``it`` to the fleet barrier (frozen shards draw no RNG there, so the
+    counter is inert); per-shard ``frozen`` / ``done`` are recomputed from
+    the restored patience counters against ``patience`` (the packer's),
+    because a sub-fleet freezes as a unit even when the full fleet was
+    still live.
+    """
+    hetero = bool(extra["hetero"])
+    if any(bool(st.hetero) != hetero for st in sts):
+        raise ValueError("checkpoint does not match this fleet's layout")
+    n_rows = int(extra["n_rows"])
+    if n_rows != sum(st.n_rows for st in sts):
+        raise ValueError(
+            f"checkpoint holds {n_rows} chain rows but the shard split has "
+            f"{sum(st.n_rows for st in sts)}; the group membership changed"
+        )
+    cls = type(sts[0])
+    fields = cls.CODEC_ARRAYS + (cls.CODEC_ARRAYS_HETERO if hetero else ())
+    n_probs = sum(st.n_probs for st in sts)
+    rngs = extra["rngs"]
+    traces = extra["traces"]
+    if len(rngs) != n_probs or len(traces) != n_probs:
+        raise ValueError("checkpoint problem count does not match")
+    r0 = p0 = 0
+    for st in sts:
+        nr, npb = st.n_rows, st.n_probs
+        for f in fields:
+            arr = np.asarray(arrays[f])
+            cur = np.asarray(getattr(st, f))
+            if arr.dtype != cur.dtype or arr.ndim != cur.ndim:
+                raise ValueError(
+                    f"checkpoint field {f!r}: {arr.dtype}/{arr.ndim}d does "
+                    f"not match fleet layout {cur.dtype}/{cur.ndim}d"
+                )
+            if any(a < c for a, c in zip(arr.shape[1:], cur.shape[1:])):
+                raise ValueError(
+                    f"checkpoint field {f!r}: envelope {arr.shape[1:]} is "
+                    f"narrower than the shard's {cur.shape[1:]}"
+                )
+            lo, n = (r0, nr) if f in _ROW_FIELDS else (p0, npb)
+            setattr(st, f, arr[lo:lo + n].copy())
+        if not hetero:
+            st.pcosts = st.costs  # pcosts aliases costs on single-kind fleets
+        st.it = int(extra["it"])
+        frozen = bool(np.all(np.asarray(st.stale) >= patience))
+        st.frozen = frozen
+        st.done = frozen or bool(extra["done"])
+        for rng, state in zip(st.rngs, rngs[p0:p0 + npb]):
+            set_rng_state(rng, state)
+        st.traces = [_trace_from_state(tr) for tr in traces[p0:p0 + npb]]
+        st.t_start = time.perf_counter()
+        r0 += nr
+        p0 += npb
 
 
 def encode_ga_run(run) -> tuple[dict, dict]:
@@ -433,6 +549,16 @@ class SweepCheckpointer(_Checkpointer):
         restore_block_state(st, self._engine_arrays(), self._engine)
         return True
 
+    def restore_block_shards(self, gdigest: str, sts, patience: int) -> bool:
+        """Shard-count-agnostic :meth:`restore_block`: slice the canonical
+        group snapshot onto any contiguous shard split (the snapshot is
+        always written merged, :func:`merge_block_states`)."""
+        if self._group != gdigest or not isinstance(self._engine, dict):
+            return False
+        restore_block_shards(sts, self._engine_arrays(), self._engine,
+                             patience)
+        return True
+
     def restore_ga_group(self, gdigest: str, runs) -> bool:
         if self._group != gdigest or not isinstance(self._engine, list):
             return False
@@ -494,8 +620,10 @@ class PortfolioCheckpointer(_Checkpointer):
                     f"{self._group_tag(group)!r}"
                 )
             if isinstance(group, _SAFleetGroup):
-                restore_fleet_state(
-                    group.st, self._group_arrays(gi), state,
+                # fleet snapshots use the canonical merged layout, so a run
+                # may resume at a different shard count than it saved under
+                restore_block_shards(
+                    group.sts, self._group_arrays(gi), state,
                     group.packer.patience,
                 )
             elif isinstance(group, _GAGroup):
@@ -531,7 +659,7 @@ class PortfolioCheckpointer(_Checkpointer):
         metas: list = []
         for gi, group in enumerate(groups):
             if isinstance(group, _SAFleetGroup):
-                a, e = encode_block_state(group.st)
+                a, e = merge_block_states(group.sts)
                 for k, v in a.items():
                     arrays[f"g{gi}/{k}"] = v
                 metas.append({"type": "fleet", "state": e})

@@ -627,6 +627,7 @@ class SimulatedAnnealingPacker:
         rngs: Sequence[np.random.Generator],
         inits: Sequence[Sequence[Solution]],
         backend: str,
+        mesh=None,
     ) -> list[_BlockOut]:
         """The vectorized annealer over a *fleet*: P problems x C chains.
 
@@ -644,9 +645,10 @@ class SimulatedAnnealingPacker:
         and best-chain exchange stay independent; the delta-cost kernel and
         Metropolis rule run once over all ``P * C`` rows per step.
 
-        Implemented as `_block_start` + `_block_run` + `_block_finish`.
+        Implemented as `_block_start` + `_block_run` + `_block_finish`;
+        ``mesh`` row-shards every step's delta call (see `_block_start`).
         """
-        st = self._block_start(probs, rngs, inits, backend)
+        st = self._block_start(probs, rngs, inits, backend, mesh=mesh)
         self._block_run(st)
         return self._block_finish(st)
 
@@ -657,12 +659,21 @@ class SimulatedAnnealingPacker:
         inits: Sequence[Sequence[Solution]],
         backend: str,
         n_slots: int | None = None,
+        mesh=None,
+        device=None,
     ) -> _BlockState:
         """Encode a fleet's chain state (no RNG draws beyond chain init);
         ``n_slots`` widens the bin-slot envelope (the portfolio passes
         ``prob.n`` so any migrant fits — envelope padding never affects
-        trajectories)."""
+        trajectories).  ``mesh`` (a ``("prob",)`` sweep mesh) row-shards
+        every step's delta call on the device backends; ``device`` (default
+        ``self.device``) is the device this fleet's calls go to, so the
+        shards of one packer, advanced on threads, each keep their own.
+        Both are start-derived constants, never serialized: a snapshot may
+        restore onto another mesh or shard count."""
         st = _BlockState()
+        st.mesh = mesh if backend in ("torch", "cuda") else None
+        st.device = self.device if device is None else device
         n_probs = st.n_probs = len(probs)
         n_chains = self.n_chains
         n_rows = st.n_rows = n_probs * n_chains
@@ -758,8 +769,9 @@ class SimulatedAnnealingPacker:
         """Advance the fleet until ``it_limit`` (a barrier), the iteration
         budget, the wall cap, or fleet-wide freezing — by driving
         `_block_gen` and answering every step request with one delta-cost
-        call on ``self.device``.  All state lives in ``st``, so a barriered
-        run is bit-identical to an uninterrupted one."""
+        call on ``st.device`` (row-sharded over ``st.mesh``).  All state
+        lives in ``st``, so a barriered run is bit-identical to an
+        uninterrupted one."""
         gen = self._block_gen(st, it_limit)
         req = next(gen, None)
         while req is not None:
@@ -770,8 +782,9 @@ class SimulatedAnnealingPacker:
 
     def _block_eval(self, st: _BlockState, req: tuple) -> np.ndarray:
         """Answer one `_block_gen` step request with one delta-cost call on
-        ``self.device`` (the portfolio's fused barrier answers the same
-        requests through ``binpack_portfolio_step``)."""
+        ``st.device``, row-sharded over ``st.mesh`` (the portfolio's fused
+        barrier answers the same requests through
+        ``binpack_portfolio_step``)."""
         from ..kernels.binpack_sa_step.ops import sa_step_deltas
 
         old_w, old_h, new_w, new_h, old_k, new_k = req
@@ -779,11 +792,11 @@ class SimulatedAnnealingPacker:
             return sa_step_deltas(
                 old_w, old_h, new_w, new_h, backend=st.backend,
                 old_k=old_k, new_k=new_k, kind_tables=st.kt,
-                device=self.device,
+                device=st.device, mesh=st.mesh,
             )
         return sa_step_deltas(
             old_w, old_h, new_w, new_h, modes=st.modes0,
-            backend=st.backend, device=self.device,
+            backend=st.backend, device=st.device, mesh=st.mesh,
         )
 
     def _block_gen(self, st: _BlockState, it_limit: int | None = None):

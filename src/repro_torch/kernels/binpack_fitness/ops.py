@@ -15,6 +15,11 @@ back with one ``.cpu()`` copy.  Backends:
 Heterogeneous OCM problems pass a parallel ``kinds`` matrix plus the
 problem's ``kind_tables`` (``((weight, modes), ...)`` per RAM kind).
 
+``mesh`` (a `launch.mesh.SweepMesh`) row-shards a call: the rows are
+zero-padded to a multiple of the mesh size, each mesh device stages and
+costs its contiguous block, and the totals come back bit-identical to the
+unsharded call (`kernels/probshard.py`).
+
 Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
 0.  A slot with ``w > 0`` and ``h < 0`` is outside it (the backends may
 disagree there) and is not checked per call: the GA, SA and portfolio
@@ -23,7 +28,9 @@ engines never make one (``tests/test_torch_kernel_domain.py``).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..probshard import run_rows
 from ..staging import stage
 from .kernel import binpack_fitness_cuda, binpack_fitness_kinds_cuda
 from .ref import binpack_fitness_kinds_ref, binpack_fitness_ref
@@ -39,6 +46,7 @@ def population_costs(
     kinds=None,
     kind_tables=None,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """(P, NB) non-negative int32 host geometry -> (P,) int64 total cost per
     individual (host numpy).
@@ -48,7 +56,8 @@ def population_costs(
     them the single mode set ``modes`` (default ``BRAM18_MODES``) applies to
     every bin.  A leading *problem axis* is accepted too: ``(NP, P, NB)``
     inputs return ``(NP, P)`` totals, by reshape to one ``(NP * P, NB)``
-    call (padded problem rows have width 0 and cost nothing).
+    call (padded problem rows have width 0 and cost nothing).  ``mesh``
+    row-shards the ``NP * P`` rows over a sweep mesh of ``device``'s type.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
@@ -59,16 +68,19 @@ def population_costs(
 
         modes = BRAM18_MODES
     lead = tuple(np.shape(widths)[:-1])
-    if kinds is not None:
-        w, h, k = stage((widths, heights, kinds), device).unbind(0)
+    planes = (widths, heights) + (() if kinds is None else (kinds,))
+
+    def body(dev, *planes) -> torch.Tensor:
+        """The (R,) int64 totals of one block, on ``dev`` (not fetched)."""
+        if kinds is not None:
+            w, h, k = stage(planes, dev).unbind(0)
+            if backend == "cuda":
+                return binpack_fitness_kinds_cuda(w, h, k, kind_tables)
+            return binpack_fitness_kinds_ref(w, h, k, kind_tables).sum(dim=1)
+        w, h = stage(planes, dev).unbind(0)
         if backend == "cuda":
-            totals = binpack_fitness_kinds_cuda(w, h, k, kind_tables)
-        else:
-            totals = binpack_fitness_kinds_ref(w, h, k, kind_tables).sum(dim=1)
-    else:
-        w, h = stage((widths, heights), device).unbind(0)
-        if backend == "cuda":
-            totals = binpack_fitness_cuda(w, h, modes)
-        else:
-            totals = binpack_fitness_ref(w, h, modes).sum(dim=1)
-    return totals.cpu().numpy().reshape(lead)
+            return binpack_fitness_cuda(w, h, modes)
+        return binpack_fitness_ref(w, h, modes).sum(dim=1)
+
+    totals = run_rows(body, planes, device, mesh)
+    return totals.reshape(lead)

@@ -19,6 +19,11 @@ integer arithmetic: the totals equal ``binpack_fitness.ops.population_costs``
 and the deltas ``binpack_sa_step.ops.sa_step_deltas`` on the same inputs,
 so a fused barrier cannot change any engine trajectory.
 
+``mesh`` (a `launch.mesh.SweepMesh`) row-shards a call on the torch and
+cuda backends: the population rows and the step rows pad to a multiple of
+the mesh size independently, and each mesh device gets ONE fused call on
+its block of both halves (`kernels/probshard.py`); ``python`` ignores it.
+
 Domain: ``w, h >= 0`` (int32) on both halves; a slot with ``w == 0`` is
 empty and costs 0.  A slot with ``w > 0`` and ``h < 0`` is outside it (the
 backends may disagree there) and is not checked per call: the GA, SA and
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..binpack_sa_step.ops import _bin_costs_kinds_numpy, _bin_costs_numpy
+from ..probshard import mesh_size, pad_rows, row_shard
 from ..staging import stage_groups
 from .kernel import portfolio_step_joined_cuda, portfolio_step_kinds_joined_cuda
 from .ref import portfolio_step_kinds_ref, portfolio_step_ref
@@ -51,6 +57,7 @@ def portfolio_step(
     new_k=None,
     kind_tables=None,
     device="cuda",
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """One fused call: ``(W, H)`` population geometry (any leading shape,
     bins on the last axis) plus ``(R, T)`` touched-bin SA step geometry,
@@ -61,7 +68,8 @@ def portfolio_step(
     ``sa_step_deltas``).  Heterogeneous problems pass the kind lanes of
     BOTH halves (``kinds`` for the populations, ``old_k`` / ``new_k`` for
     the touched slots) plus the shared ``kind_tables`` — all-or-none, since
-    a portfolio's islands share one problem.
+    a portfolio's islands share one problem.  ``mesh`` row-shards both
+    halves over a sweep mesh of ``device``'s type.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
@@ -89,20 +97,39 @@ def portfolio_step(
         return totals, np.sum(new_c - old_c, axis=-1)
     lead = tuple(np.shape(W)[:-1])
     step_lead = tuple(np.shape(old_w)[:-1])
-    if hetero:
-        pop, step = stage_groups(
-            ((W, H, kinds), (old_w, old_h, old_k, new_w, new_h, new_k)), device
-        )
-        args = (*pop.unbind(0), *step.unbind(0), kind_tables)
-        cuda, plain = portfolio_step_kinds_joined_cuda, portfolio_step_kinds_ref
+    pop = (W, H) + ((kinds,) if hetero else ())
+    step = (
+        (old_w, old_h, old_k, new_w, new_h, new_k) if hetero
+        else (old_w, old_h, new_w, new_h)
+    )
+    cuda, plain = (
+        (portfolio_step_kinds_joined_cuda, portfolio_step_kinds_ref) if hetero
+        else (portfolio_step_joined_cuda, portfolio_step_ref)
+    )
+    tables = kind_tables if hetero else modes
+
+    def body(dev, *planes) -> torch.Tensor:
+        """One block's ``(rows + C,)`` int64 totals then deltas, on ``dev``
+        (not fetched): both halves staged with one copy, one fused call."""
+        pop_s, step_s = stage_groups((planes[:len(pop)], planes[len(pop):]), dev)
+        args = (*pop_s.unbind(0), *step_s.unbind(0), tables)
+        return cuda(*args) if backend == "cuda" else torch.cat(plain(*args))
+
+    if mesh is None:
+        both = body(torch.device(device), *pop, *step).cpu().numpy()
+        rows = int(np.prod(lead))
+        totals, deltas = both[:rows], both[rows:]
     else:
-        pop, step = stage_groups(((W, H), (old_w, old_h, new_w, new_h)), device)
-        args = (*pop.unbind(0), *step.unbind(0), modes)
-        cuda, plain = portfolio_step_joined_cuda, portfolio_step_ref
-    rows = pop.shape[1]
-    both = cuda(*args) if backend == "cuda" else torch.cat(plain(*args))
-    both = both.cpu().numpy()  # one copy back for both halves
+        k = mesh_size(mesh)
+        nb, t = np.shape(W)[-1], np.shape(old_w)[-1]
+        pop_p, n_pop = pad_rows([np.reshape(a, (-1, nb)) for a in pop], k)
+        step_p, n_step = pad_rows([np.reshape(a, (-1, t)) for a in step], k)
+        # block i's output is its rows' totals, then its chains' deltas
+        rb, cb = len(pop_p[0]) // k, len(step_p[0]) // k
+        both = row_shard(mesh, body, (*pop_p, *step_p), device).reshape(k, rb + cb)
+        totals = both[:, :rb].reshape(-1)[:n_pop]
+        deltas = both[:, rb:].reshape(-1)[:n_step]
     return (
-        both[:rows].astype(np.float64).reshape(lead),
-        both[rows:].reshape(step_lead),
+        totals.astype(np.float64).reshape(lead),
+        deltas.reshape(step_lead),
     )

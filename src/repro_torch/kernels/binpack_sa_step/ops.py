@@ -23,6 +23,12 @@ uphill moves and compares against ``math.exp``, and per-seed bit parity pins
 that exact stream and rounding.  Fusing the compare into a float32 kernel
 would break parity for ~1-ulp boundary cases.
 
+``mesh`` (a `launch.mesh.SweepMesh`) row-shards a call on the torch and
+cuda backends: the chain rows are zero-padded to a multiple of the mesh
+size, each mesh device stages and costs its contiguous block, and the
+deltas come back bit-identical (`kernels/probshard.py`); ``python``
+ignores it.
+
 Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
 0.  A slot with ``w > 0`` and ``h < 0`` is outside it (the backends may
 disagree there) and is not checked per call: the GA, SA and portfolio
@@ -33,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..probshard import run_rows
 from ..staging import stage
 from .kernel import sa_step_deltas_cuda, sa_step_deltas_kinds_cuda
 from .ref import sa_step_deltas_kinds_ref, sa_step_deltas_ref
@@ -58,12 +65,6 @@ def _bin_costs_kinds_numpy(w, h, k, kind_tables) -> np.ndarray:
     return out
 
 
-def _planes(arrays, device) -> tuple[torch.Tensor, ...]:
-    """The planes on ``device`` as views of one staged ``(P, R, T)`` tensor
-    (one host->device copy)."""
-    return stage(arrays, device).unbind(0)
-
-
 def sa_step_deltas(
     old_w,
     old_h,
@@ -75,6 +76,7 @@ def sa_step_deltas(
     new_k=None,
     kind_tables=None,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """(C, T) non-negative int32 touched-bin geometry before/after -> (C,)
     int64 cost deltas.
@@ -85,7 +87,8 @@ def sa_step_deltas(
     ``kind_tables``: each slot is costed on its own mode table, so a kind
     flip (same geometry, different kind) is just another delta.  A leading
     problem axis is accepted too: ``(NP, C, T)`` inputs return ``(NP, C)``
-    deltas, by reshape to one ``(NP * C, T)`` call.
+    deltas, by reshape to one ``(NP * C, T)`` call.  ``mesh`` row-shards
+    the rows over a sweep mesh of ``device``'s type.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
@@ -105,21 +108,23 @@ def sa_step_deltas(
             new_c = _bin_costs_numpy(new_w, new_h, modes)
             old_c = _bin_costs_numpy(old_w, old_h, modes)
         return np.sum(new_c - old_c, axis=-1)
-    if hetero:
-        ow, oh, ok, nw, nh, nk = _planes(
-            (old_w, old_h, old_k, new_w, new_h, new_k), device
-        )
-        if backend == "cuda":
-            out = sa_step_deltas_kinds_cuda(ow, oh, ok, nw, nh, nk, kind_tables)
-        else:
-            out = sa_step_deltas_kinds_ref(ow, oh, ok, nw, nh, nk, kind_tables)
-    else:
-        ow, oh, nw, nh = _planes((old_w, old_h, new_w, new_h), device)
-        if backend == "cuda":
-            out = sa_step_deltas_cuda(ow, oh, nw, nh, modes)
-        else:
-            out = sa_step_deltas_ref(ow, oh, nw, nh, modes)
-    return out.cpu().numpy().reshape(lead)
+    planes = (
+        (old_w, old_h, old_k, new_w, new_h, new_k) if hetero
+        else (old_w, old_h, new_w, new_h)
+    )
+
+    def body(dev, *planes) -> torch.Tensor:
+        """The (R,) int64 deltas of one block, on ``dev`` (not fetched): the
+        planes as views of one staged ``(P, R, T)`` tensor (one copy)."""
+        staged = stage(planes, dev).unbind(0)
+        if hetero:
+            fn = sa_step_deltas_kinds_cuda if backend == "cuda" else sa_step_deltas_kinds_ref
+            return fn(*staged, kind_tables)
+        fn = sa_step_deltas_cuda if backend == "cuda" else sa_step_deltas_ref
+        return fn(*staged, modes)
+
+    out = run_rows(body, planes, device, mesh)
+    return out.reshape(lead)
 
 
 def metropolis_mask(d_e, temps, u) -> np.ndarray:

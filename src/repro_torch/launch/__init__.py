@@ -1,0 +1,4 @@
+"""Device meshes of the port (the counterpart of `repro.launch`): the 1-D
+``("prob",)`` sweep mesh that `pack_sweep`, `solve_batch` and
+`pack_portfolio` take as ``mesh=``."""
+from .mesh import SweepMesh, make_sweep_mesh  # noqa: F401

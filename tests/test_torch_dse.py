@@ -384,11 +384,19 @@ def test_sweep_seed_validation_and_empty():
         port.solve_batch([prob], "sa-s", seeds=[1, 2], device="cpu")
     with pytest.raises(ValueError):
         port.pack_sweep([prob], "sa-s", n_shards=0, device="cpu")
-    # sub-fleet sharding and device meshes come with the sharding slice
+    # sub-fleet sharding is an execution-shape knob: n_shards=2 answers as
+    # n_shards=1; a mesh must be a 1-D ('prob',) sweep mesh
+    probs = [prob, port.get_problem("CNV-W2A2")]
+    kw = dict(n_chains=2, max_iterations=40, max_seconds=1e9, patience=10**9,
+              device="cpu")
+    one = port.pack_sweep(probs, "sa-s", **kw)
+    two = port.pack_sweep(probs, "sa-s", n_shards=2, **kw)
+    assert _record(two.results) == _record(one.results)
+    assert two.params["n_shards"] == 2
+    batch = port.solve_batch(probs, "sa-s", n_shards=2, **kw)
+    assert _record(batch) == _record(one.results)
     for fn in (port.pack_sweep, port.solve_batch):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            fn([prob], "sa-s", n_shards=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="sharding slice"):
+        with pytest.raises(ValueError, match=r"1-D \('prob',\) sweep mesh"):
             fn([prob], "sa-s", mesh=object(), device="cpu")
 
 

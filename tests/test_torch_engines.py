@@ -97,15 +97,20 @@ def test_warm_starts_match_reference():
 
 
 def test_portfolio_and_legacy_wait_for_later_slices(tmp_path):
-    """The portfolio and its checkpoints are ported; its sharded fleets and
-    the legacy backend wait for later slices."""
+    """The portfolio, its checkpoints and its sharded fleets are ported;
+    the legacy backend waits for a later slice."""
     prob = port.get_problem("CNV-W1A1")
     assert "portfolio" in port.ALGORITHMS
     r = port.pack(prob, "portfolio", device="cpu", checkpoint_dir=str(tmp_path / "ck"),
                   max_generations=2, max_iterations=20, max_seconds=1e9)
     r.solution.validate()
     assert list((tmp_path / "ck").glob("step_*"))
-    with pytest.raises(NotImplementedError, match="portfolio"):
-        port.pack(prob, "portfolio", device="cpu", n_shards=2)
+    kw = dict(device="cpu", algorithms=("sa-s",), n_islands=3, sa_chains=2,
+              max_iterations=64, max_seconds=1e9)
+    one = port.pack(prob, "portfolio", **kw)
+    two = port.pack(prob, "portfolio", n_shards=2, **kw)
+    assert _key(two) == _key(one)
+    assert (two.params["barriers"], two.params["migrations"]) == (
+        one.params["barriers"], one.params["migrations"])
     with pytest.raises(ValueError, match="legacy"):
         port.pack(prob, "ga-nfd", backend="legacy", device="cpu")

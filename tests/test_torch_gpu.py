@@ -620,3 +620,40 @@ def test_packing_service_on_card_matches_host_backend(tmp_path):
     warm, stats, counts = run("cuda", store_dir=tmp_path)
     assert warm == got and stats["solved"] == 0 and not any(counts.values())
     assert stats["cache_hits_store"] == len(reqs) // 2
+
+
+@pytest.mark.gpu
+def test_sharded_sweep_on_card_matches_host_backend(monkeypatch):
+    """A small heterogeneous `pack_sweep` on the card at ``n_shards=2`` and
+    on a two-shard mesh of one card equals the host backend; on the mesh,
+    K3 / K4 launch exactly twice per ops call (once per mesh device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.core as c
+    from repro_torch.kernels.binpack_sa_step import ops as sops
+    from repro_torch.launch import SweepMesh
+
+    probs = [c.get_problem(n, device=d) for n in ("CNV-W1A1", "CNV-W2A2")
+             for d in (None, "U50")]
+    kw = dict(seeds=[0, 1, 2, 3], n_chains=4, max_iterations=150, max_seconds=1e9,
+              patience=10**9)
+    want = _sweep_record(c.pack_sweep(probs, "sa-s", backend="python", **kw))
+    split = c.pack_sweep(probs, "sa-s", backend="cuda", n_shards=2, **kw)
+    assert _sweep_record(split) == want and split.params["n_shards"] == 2
+    calls = []
+    inner = sops.sa_step_deltas
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("mesh"))
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(sops, "sa_step_deltas", counted)
+    mesh = SweepMesh([torch.device("cuda", 0)] * 2)
+    kernels.reset_launch_counts()
+    got = c.pack_sweep(probs, "sa-s", backend="cuda", mesh=mesh, **kw)
+    counts = kernels.launch_counts()
+    assert _sweep_record(got) == want
+    assert calls and all(m is mesh for m in calls)
+    k3, k4 = counts.pop("sa_step_deltas_cuda"), counts.pop("sa_step_deltas_kinds_cuda")
+    assert k3 > 0 and k4 > 0 and k3 + k4 == 2 * len(calls), (k3, k4, len(calls))
+    assert not any(counts.values()), counts

@@ -40,17 +40,23 @@ def test_port_sources_import_no_jax_and_no_reference():
 
 
 def test_cpu_pack_loads_neither_jax_nor_reference(tmp_path):
-    """`pack`, and the packing service (micro-batched solves, its result
-    store, the traffic helpers) on top of it, import nothing of JAX or the
-    reference."""
+    """`pack`, a sharded sweep on a sweep mesh, and the packing service
+    (micro-batched solves, its result store, the traffic helpers) on top of
+    it, import nothing of JAX or the reference."""
     code = (
-        "import asyncio, sys\n"
+        "import asyncio, sys, torch\n"
         "import repro_torch.core as c\n"
         "import repro_torch.serve as s\n"
+        "from repro_torch.launch import SweepMesh\n"
         "p = c.get_problem('CNV-W1A1', device='ZU7EV')\n"
         "r = c.pack(p, 'ga-nfd', device='cpu', max_generations=3, max_seconds=1e9)\n"
         "r = c.pack(p, 'sa-s', device='cpu', n_chains=2, max_iterations=20, max_seconds=1e9)\n"
         "r.solution.validate()\n"
+        "mesh = SweepMesh([torch.device('cpu')] * 2)\n"
+        "sw = c.pack_sweep([p, c.get_problem('CNV-W2A2', device='ZU7EV')], 'sa-s',\n"
+        "                  device='cpu', n_shards=2, mesh=mesh, n_chains=2,\n"
+        "                  max_iterations=20, max_seconds=1e9)\n"
+        "assert sw.params['n_shards'] == 2 and len(sw.results) == 2\n"
         "async def serve():\n"
         f"    async with s.PackingService('sa-s', store_dir={str(tmp_path)!r}, device='cpu',\n"
         "                                n_chains=2, max_iterations=20, max_seconds=1e9) as svc:\n"

@@ -56,17 +56,17 @@ def test_engine_geometry_stays_in_kernel_domain(device, monkeypatch):
         monkeypatch.setattr(mod, name, wrapped)
 
     def fitness_args(widths, heights, modes=None, backend="cuda", kinds=None,
-                     kind_tables=None, device="cuda"):
+                     kind_tables=None, device="cuda", mesh=None):
         _check(widths, heights, kinds, prob.n_kinds)
 
     def sa_args(old_w, old_h, new_w, new_h, modes=None, backend="cuda",
-                old_k=None, new_k=None, kind_tables=None, device="cuda"):
+                old_k=None, new_k=None, kind_tables=None, device="cuda", mesh=None):
         _check(old_w, old_h, old_k, prob.n_kinds)
         _check(new_w, new_h, new_k, prob.n_kinds)
 
     def fused_args(W, H, old_w, old_h, new_w, new_h, modes=None, backend="cuda",
                    kinds=None, old_k=None, new_k=None, kind_tables=None,
-                   device="cuda"):
+                   device="cuda", mesh=None):
         fitness_args(W, H, kinds=kinds)
         sa_args(old_w, old_h, new_w, new_h, old_k=old_k, new_k=new_k)
 

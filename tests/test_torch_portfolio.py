@@ -21,6 +21,7 @@ import torch
 
 import repro.core as ref
 import repro_torch.core as port
+from repro_torch.launch import SweepMesh
 
 # iteration-budgeted: machine speed never enters, runs are bit-reproducible
 _KW = dict(
@@ -278,19 +279,19 @@ def test_pack_routes_portfolio():
     ids=["checkpoint_dir", "resume", "on_checkpoint", "n_shards", "mesh"],
 )
 def test_later_slices_raise_not_implemented(kw, tmp_path):
-    """Sharded fleets (``n_shards > 1`` / ``mesh``) still wait for the
-    sharding slice and raise before any work; the checkpoint arguments are
-    ported (``tests/test_torch_resume.py``): a checkpointed run cuts its
-    snapshots and gives the plain run's result, and ``resume`` /
-    ``on_checkpoint`` without a directory change nothing, as in the
-    reference."""
+    """Every argument of the reference is ported: a checkpointed run cuts
+    its snapshots and gives the plain run's result (``tests/test_torch_
+    resume.py``), ``resume`` / ``on_checkpoint`` without a directory change
+    nothing, as in the reference, and so do ``n_shards`` and a sweep mesh
+    (``tests/test_torch_sharded.py``); a mesh that is no ``("prob",)``
+    sweep mesh raises before any work."""
     prob = port.get_problem("CNV-W1A1")
     budget = dict(device="cpu", max_generations=2, max_iterations=20, max_seconds=1e9)
-    if "n_shards" in kw or "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="slice"):
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="sweep mesh"):
             port.pack_portfolio(prob, checkpoint_dir=str(tmp_path / "ckpt"), **kw)
         assert not (tmp_path / "ckpt").exists()
-        return
+        kw = dict(mesh=SweepMesh([torch.device("cpu")] * 2))
     if "checkpoint_dir" in kw:
         kw = dict(checkpoint_dir=str(tmp_path / "ckpt"))
     got = port.pack_portfolio(prob, **budget, **kw)

@@ -328,11 +328,27 @@ def test_portfolio_budget_terminated_run_is_not_marked_truncated(portfolio_ref):
     assert _portfolio_record(res) == portfolio_ref
 
 
-def test_portfolio_sharding_still_raises(tmp_path):
+def test_portfolio_sharding_still_raises(portfolio_ref, tmp_path):
+    """Sharded portfolio fleets are ported: a checkpointed ``n_shards=2`` run
+    equals the reference's unsharded one, a split SA fleet killed at a
+    barrier resumes unsharded to the reference's result, and a mesh that is
+    no sweep mesh raises before any work."""
     prob = _problems(port)[0]
-    for kw in (dict(n_shards=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            _port_portfolio(prob, "python", checkpoint_dir=tmp_path, **kw)
+    got = _port_portfolio(prob, "python", checkpoint_dir=tmp_path / "a", n_shards=2)
+    assert _portfolio_record(got) == portfolio_ref
+    fleet = [port.IslandSpec("sa-s", seed=s) for s in (6, 7, 8)]
+    want = _portfolio_record(ref.pack_portfolio(
+        _problems(ref)[0], islands=[ref.IslandSpec("sa-s", seed=s) for s in (6, 7, 8)],
+        backend="python", **_PORT))
+    with pytest.raises(SimulatedCrash):
+        _port_portfolio(prob, "torch", islands=fleet, checkpoint_dir=tmp_path / "b",
+                        checkpoint_every=2, n_shards=2, on_checkpoint=crash_at(2))
+    resumed = _port_portfolio(prob, "torch", islands=fleet, checkpoint_dir=tmp_path / "b",
+                              checkpoint_every=2, resume=True)
+    assert _portfolio_record(resumed) == want
+    with pytest.raises(ValueError, match="sweep mesh"):
+        _port_portfolio(prob, "python", checkpoint_dir=tmp_path / "c", mesh=object())
+    assert not (tmp_path / "c").exists()
 
 
 # --------------------------------------------------- snapshots across packages
