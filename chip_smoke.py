@@ -106,6 +106,19 @@ no result line):
    each ops layer on the mesh at ragged row counts; wall time and
    candidates/s per run beside 6a's; the ``n_shards=4`` sweep under
    ``torch.profiler`` (the device's busy share);
+6e. LM serving: ``SyntheticTokenPipeline(DataConfig())`` (seq 512, batch 8)
+   4 steps packed on the card and 4 on the host, bit-equal; qwen3-0.6b at
+   its published widths (0.60 B float32 parameters seeded on the card)
+   through ``decode_demo`` ``--packed`` and unpacked (batch 4, prompt 32,
+   16 tokens): the plan's GA launches K1 and nothing else launches,
+   ``unpack()`` bit-equal to the tree, tokens equal and logits bit-equal,
+   tokens/s, teacher-forced decode at S-1 against the full forward in
+   float32 within 2e-3, one profiled generation; granite-moe-1b-a400m at
+   its published widths (1.33 B): a prefill and 8 decode steps, then in
+   float32 every layer and the logits against the host on the card's own
+   inputs within 1e-4; every arch at its smoke config against the host
+   within 1e-4 (end to end and layer by layer); K1 against its plain
+   version at each shape the plan gave it;
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -2348,6 +2361,362 @@ def shard_path(device, dse, portfolio) -> dict:
                 mesh=repr(mesh), seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 6e
+# LM serving: the data pipeline at its defaults; qwen3-0.6b at its published
+# widths (28 layers, d 1024, vocab 151936: 0.60 B float32 parameters, seeded
+# on the card) through `decode_demo`, packed and not; granite-moe-1b-a400m at
+# its published widths (24 layers, 32 experts top-8: 1.33 B) against the
+# host, one layer at a time; every arch at its smoke config against the host.
+LM_ARCH = "qwen3-0.6b"
+LM_MOE_ARCH = "granite-moe-1b-a400m"
+LM_DEMO = ("--scale", "full", "--batch", "4", "--prompt-len", "32", "--gen-len", "16",
+           "--device", "cuda")
+LM_DATA_STEPS = 4
+LM_MOE_STEPS = 8  # granite's decode steps after its prefill
+LM_SMOKE = ("--batch", "2", "--prompt-len", "12", "--gen-len", "6", "--device", "cuda")
+LM_F32_REL = 1e-4  # tests/test_torch_models.py's float32 bound
+LM_DECODE_REL = 2e-3  # the reference's decode == full forward bound
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, both moved to the host in float32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {tuple(got.shape)} vs {tuple(want.shape)}")
+    return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def tensors_of(node):
+    """The tensors of a nested dict / tuple / list, in order."""
+    import torch
+
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from tensors_of(v)
+    elif isinstance(node, (tuple, list)):
+        for v in node:
+            yield from tensors_of(v)
+
+
+def to_host(node):
+    import torch
+
+    if isinstance(node, torch.Tensor):
+        return node.cpu()
+    if isinstance(node, dict):
+        return {k: to_host(v) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(to_host(v) for v in node)
+    return node
+
+
+class HostShadow:
+    """While active, each block the model's prefill and decode run on the
+    card (``block_prefill`` / ``block_decode``, layer ``i`` of ``n_layers``
+    in order) and its logits run again on the host, on the card's own
+    inputs copied over and the host's copy of the weights (``host``, the
+    same stacked tree); ``max_rel`` is the largest `rel_err` of a card
+    output against the host's.  One layer at a time, so float32 rounding
+    never accumulates across layers into a different MoE route."""
+
+    def __init__(self, cfg, host):
+        self.cfg, self.host = cfg, host
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+
+        self.M, self.max_rel, self.compared = M, 0.0, 0
+        self.calls = {"prefill": 0, "decode": 0}
+        self._saved = (M.block_prefill, M.block_decode, M._logits)
+        M.block_prefill = self._layer("prefill", self._saved[0])
+        M.block_decode = self._layer("decode", self._saved[1])
+        M._logits = self._logits
+        return self
+
+    def _compare(self, got, want, what):
+        got, want = list(tensors_of(got)), list(tensors_of(want))
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} card outputs, {len(want)} host")
+        for g, w in zip(got, want):
+            self.max_rel = max(self.max_rel, rel_err(g, w))
+            self.compared += 1
+
+    def _layer(self, kind, fn):
+        def shadow(cfg, p, h, *args, **kw):
+            i = self.calls[kind] % self.cfg.n_layers
+            self.calls[kind] += 1
+            hp = self.M.tree_index(self.host["layers"], i)
+            for a, b in zip(tensors_of(p), tensors_of(hp)):
+                if not torch_equal_sample(a, b):
+                    raise AssertionError(f"{kind} layer {i}: the host's weights differ")
+            out = fn(cfg, p, h, *args, **kw)
+            self._compare(out, fn(cfg, hp, h.cpu(), *to_host(args), **to_host(kw)),
+                          f"{kind} layer {i}")
+            return out
+        return shadow
+
+    def _logits(self, cfg, params, h):
+        out = self._saved[2](cfg, params, h)
+        self._compare(out, self._saved[2](cfg, self.host, h.cpu()), "logits")
+        return out
+
+    def __exit__(self, *exc):
+        self.M.block_prefill, self.M.block_decode, self.M._logits = self._saved
+
+
+def torch_equal_sample(card, host) -> bool:
+    """The first 64 values of a card tensor equal its host copy's."""
+    import torch
+
+    return torch.equal(card.flatten()[:64].cpu(), host.flatten()[:64])
+
+
+def lm_path(device) -> dict:
+    """LM serving on the card.  Launch counts are set to 0 at the start and
+    read at the end, before K1 is held against its plain version on the
+    inputs the qwen3-0.6b plan gave it.
+
+    * Data: ``SyntheticTokenPipeline(DataConfig())`` (seq 512, batch 8,
+      vocab 32000), 4 steps packed on the card and 4 on the host:
+      bit-equal batches and states.
+    * qwen3-0.6b at published widths, ``decode_demo`` ``--packed`` and
+      unpacked (batch 4, prompt 32, 16 tokens): K1 launched by the plan and
+      nothing else by either run; ``unpack()`` bit-equal to the tree; equal
+      tokens and bit-equal logits; tokens/s; then teacher-forced decode at
+      position S-1 against the full forward in a float32 copy of the config
+      within 2e-3 (TF32 off), and one profiled unpacked generation.
+    * granite-moe-1b-a400m at published widths: one prefill and 8 decode
+      steps (bf16 compute, finite logits); then float32 with every layer
+      and the logits against the host on the card's own inputs
+      (`HostShadow`), within 1e-4.
+    * Every arch at its smoke config: bf16 logits finite; float32 prefill
+      and decode steps against the host layer by layer and end to end
+      (teacher-forced on the card's tokens), within 1e-4.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import decode_demo
+    from repro_torch.memory.planner import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import apply_norm
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmul is on; the LM's float32 checks need float32")
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    summary = {}
+
+    # -- data
+    t = time.perf_counter()
+    card, host = (SyntheticTokenPipeline(DataConfig(), device=d) for d in (device, "cpu"))
+    for step in range(LM_DATA_STEPS):
+        a, b = card.next_batch(), host.next_batch()
+        for k in b:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"data step {step}: {k} differs between cuda and cpu")
+    if card.state() != host.state():
+        raise AssertionError(f"data state {card.state()} vs {host.state()}")
+    summary["data"] = dict(steps=LM_DATA_STEPS, state=card.state(), seconds=time.perf_counter() - t,
+                           fill=float((a["segments"] > 0).mean()))
+    print(f"[lm] data: {LM_DATA_STEPS} batches of DataConfig() (seq 512, batch 8, vocab "
+          f"32000) packed on {device} and on the host, bit-equal; state {card.state()}; "
+          f"last batch {summary['data']['fill']:.4f} filled")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the data pipeline launched kernels: {kernels.launch_counts()}")
+
+    # -- qwen3-0.6b at published widths, packed and not, through decode_demo
+    argv = ["--arch", LM_ARCH, *LM_DEMO]
+    with ops_timer(capture=True, by_shape=True) as plan_calls:
+        packed = decode_demo.run(decode_demo.parse_args(argv + ["--packed"]))
+    after_packed = kernels.launch_counts()
+    if after_packed["binpack_fitness_cuda"] <= 0 or any(
+            n for name, n in after_packed.items() if name != "binpack_fitness_cuda"):
+        raise AssertionError(f"decode_demo --packed launches {after_packed}: expected "
+                             "binpack_fitness_cuda (the plan's GA) and nothing else")
+    tree = dict(leaves_with_paths(packed.tree))
+    served = dict(leaves_with_paths(packed.params))
+    if sorted(tree) != sorted(served):
+        raise AssertionError("store.unpack() has other paths than the tree")
+    for path, x in served.items():
+        if x.dtype != tree[path].dtype or not torch.equal(x, tree[path]):
+            raise AssertionError(f"store.unpack() differs at {path}")
+    plain = decode_demo.run(decode_demo.parse_args(argv))
+    if kernels.launch_counts() != after_packed:
+        raise AssertionError("the unpacked decode_demo launched kernels")
+    if not (np.array_equal(packed.tokens, plain.tokens) and torch.equal(packed.logits, plain.logits)):
+        raise AssertionError("packed and unpacked qwen3-0.6b generations differ")
+    if not torch.isfinite(plain.logits).all():
+        raise AssertionError("qwen3-0.6b logits are not finite")
+    store = packed.store
+    plan = store.plans[4]
+    r = plan.packer_result
+    cfg = get_config(LM_ARCH)
+    n_params = sum(x.numel() for x in tree.values())
+    b, p_len, g_len = 4, 32, 16
+    runs = {}
+    for name, run in (("packed", packed), ("unpacked", plain)):
+        s = run.seconds
+        runs[name] = dict(seconds=s, prefill_tok_s=b * p_len / s["prefill"],
+                          decode_tok_s=b * (g_len - 1) / s["decode"],
+                          decode_step_ms=1e3 * s["decode"] / (g_len - 1))
+    summary[LM_ARCH] = dict(
+        params=n_params, param_bytes=n_params * 4, tensors=len(tree),
+        packed=sum(len(bk) for bk in plan.banks), banks=len(plan.banks),
+        bank_bytes=sum(x.numel() * x.element_size() for x in store.banks.values()),
+        padded_bytes_before=plan.padded_bytes_before, padded_bytes_after=plan.padded_bytes_after,
+        saved_bytes=plan.saved_bytes, ga_cost=None if r is None else r.cost,
+        ga_generations=None if r is None else r.iterations,
+        packer_seconds=None if r is None else r.wall_time_s,
+        patience_stop=None if r is None else r.wall_time_s < 3.0,
+        plan_launches=after_packed, runs=runs, tokens_row0=plain.tokens[0].tolist())
+    q = summary[LM_ARCH]
+    print(f"[lm] {LM_ARCH} ({n_params} float32 parameters, {n_params * 4} B, seed 0 on "
+          f"{device}): decode_demo --packed planned {q['packed']} per-layer tensors into "
+          f"{q['banks']} banks ({q['bank_bytes']} B), saved {q['saved_bytes']} B, GA cost "
+          f"{q['ga_cost']} after {q['ga_generations']} generations in {q['packer_seconds']:.3f}s "
+          f"({'patience stop' if q['patience_stop'] else 'stopped by its 3 s budget'}), plan "
+          f"{packed.seconds['plan']:.3f}s, store {packed.seconds['store']:.3f}s; launches "
+          f"{json.dumps(after_packed)}; unpack() bit-equal; packed and unpacked tokens equal, "
+          f"logits bit-equal; first row {plain.tokens[0].tolist()}")
+    print(f"[lm] {LM_ARCH} tokens/s (batch {b}, prompt {p_len}, {g_len} tokens, bf16 compute): "
+          + "; ".join(f"{k} prefill {v['prefill_tok_s']:.1f} decode {v['decode_tok_s']:.1f} "
+                      f"({v['decode_step_ms']:.3f} ms a step)" for k, v in runs.items()))
+
+    # teacher-forced decode at S-1 == the full forward, float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = plain.tree
+    toks, _ = decode_demo.make_batch(cfg, decode_demo.parse_args(argv), device)
+    toks = toks["tokens"]
+    s = toks.shape[1]
+    cache, _ = M.prefill(cfg32, params, {"tokens": toks[:, : s - 1]}, s + 4)
+    _, logits_dec = M.decode_step(cfg32, params, cache, toks[:, s - 1], s - 1)
+    h, pos = M._embed_inputs(cfg32, params, {"tokens": toks})
+    h, _ = M.forward_hidden(cfg32, params, h, pos)
+    logits_full = M._logits(cfg32, params, apply_norm(cfg32, params["final_norm"], h))
+    q["decode_vs_forward_rel"] = rel_err(logits_dec[:, 0], logits_full[:, -1])
+    if not q["decode_vs_forward_rel"] < LM_DECODE_REL:
+        raise AssertionError(f"{LM_ARCH} float32 decode at S-1 vs full forward: "
+                             f"{q['decode_vs_forward_rel']:.3g} (bound {LM_DECODE_REL})")
+    print(f"[lm] {LM_ARCH} float32 (TF32 off): teacher-forced decode at position {s - 1} vs "
+          f"the full forward, relative max error {q['decode_vs_forward_rel']:.3g} "
+          f"(bound {LM_DECODE_REL})")
+    batch, cache_len = decode_demo.make_batch(cfg, decode_demo.parse_args(argv), device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        decode_demo.generate(cfg, params, batch, g_len, cache_len)
+        wall = time.perf_counter() - t
+    q["profile"] = device_share(prof, wall * 1e6, f"lm {LM_ARCH} generation",
+                                f"prefill + {g_len - 1} decode steps, batch {b}")
+    del packed, plain, params, tree, served, store, cache
+    torch.cuda.empty_cache()
+
+    # -- granite-moe-1b-a400m at published widths
+    cfg = get_config(LM_MOE_ARCH)
+    t = time.perf_counter()
+    params = M.init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    n_params = sum(x.numel() for _, x in leaves_with_paths(params))
+    margs = decode_demo.parse_args(["--arch", LM_MOE_ARCH, *LM_DEMO])
+    batch, cache_len = decode_demo.make_batch(cfg, margs, device)
+    toks16, logits16, pre_s, dec_s = decode_demo.generate(cfg, params, batch, LM_MOE_STEPS + 1,
+                                                          cache_len)
+    if not torch.isfinite(logits16).all():
+        raise AssertionError(f"{LM_MOE_ARCH} bf16 logits are not finite")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks32, _, pre32_s, dec32_s = decode_demo.generate(cfg32, params, batch, LM_MOE_STEPS + 1,
+                                                       cache_len)
+    t = time.perf_counter()
+    host = M.tree_map(lambda x: x.cpu(), params)
+    pos0 = batch["tokens"].shape[1]
+    with HostShadow(cfg32, host) as shadow:
+        cache, logits = M.prefill(cfg32, params, batch, cache_len)
+        for i in range(LM_MOE_STEPS):
+            cache, logits = M.decode_step(cfg32, params, cache, toks32[:, i], pos0 + i)
+    if shadow.calls != {"prefill": cfg.n_layers, "decode": cfg.n_layers * LM_MOE_STEPS}:
+        raise AssertionError(f"{LM_MOE_ARCH}: shadowed {shadow.calls}")
+    if not shadow.max_rel <= LM_F32_REL:
+        raise AssertionError(f"{LM_MOE_ARCH} float32 card vs host: {shadow.max_rel:.3g} "
+                             f"(bound {LM_F32_REL})")
+    summary[LM_MOE_ARCH] = dict(
+        params=n_params, param_bytes=n_params * 4, init_seconds=t_init,
+        bf16=dict(prefill_s=pre_s, decode_s=dec_s, prefill_tok_s=4 * 32 / pre_s,
+                  decode_tok_s=4 * LM_MOE_STEPS / dec_s),
+        f32=dict(prefill_s=pre32_s, decode_s=dec32_s, prefill_tok_s=4 * 32 / pre32_s,
+                 decode_tok_s=4 * LM_MOE_STEPS / dec32_s),
+        host_max_rel=shadow.max_rel, host_compared=shadow.compared,
+        host_seconds=time.perf_counter() - t, tokens_row0=toks16[0].tolist())
+    g = summary[LM_MOE_ARCH]
+    print(f"[lm] {LM_MOE_ARCH} ({n_params} float32 parameters, {n_params * 4} B, init "
+          f"{t_init:.3f}s): prefill (batch 4, prompt 32) + {LM_MOE_STEPS} decode steps, bf16 "
+          f"logits finite; tokens/s bf16 prefill {g['bf16']['prefill_tok_s']:.1f} decode "
+          f"{g['bf16']['decode_tok_s']:.1f}, float32 prefill {g['f32']['prefill_tok_s']:.1f} "
+          f"decode {g['f32']['decode_tok_s']:.1f}; float32 against the host layer by layer on "
+          f"the card's inputs ({shadow.compared} tensors, {shadow.calls}): relative max error "
+          f"{shadow.max_rel:.3g} (bound {LM_F32_REL}), {g['host_seconds']:.1f}s")
+    del params, host, cache
+    torch.cuda.empty_cache()
+
+    # -- every arch at its smoke config
+    summary["smoke"] = {}
+    for arch in ARCHS:
+        cfg = get_smoke_config(arch)
+        params = M.init_params(cfg, 0, device=device)
+        sargs = decode_demo.parse_args(["--arch", arch, *LM_SMOKE])
+        batch, cache_len = decode_demo.make_batch(cfg, sargs, device)
+        _, logits16, _, _ = decode_demo.generate(cfg, params, batch, sargs.gen_len, cache_len)
+        if not torch.isfinite(logits16).all():
+            raise AssertionError(f"{arch} smoke bf16 logits are not finite")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        toks, logits, _, _ = decode_demo.generate(cfg32, params, batch, sargs.gen_len, cache_len)
+        host = M.tree_map(lambda x: x.cpu(), params)
+        hbatch = to_host(batch)
+        pos0 = batch["tokens"].shape[1] + (cfg.num_patches if "patches" in batch else 0)
+        cache_h, lh = M.prefill(cfg32, host, hbatch, cache_len)
+        e2e = rel_err(logits[0], lh[:, -1, : cfg.vocab_size])
+        for i in range(sargs.gen_len - 1):
+            cache_h, lh = M.decode_step(cfg32, host, cache_h, toks[:, i].cpu(), pos0 + i)
+            e2e = max(e2e, rel_err(logits[i + 1], lh[:, -1, : cfg.vocab_size]))
+        with HostShadow(cfg32, host) as shadow:
+            cache, _ = M.prefill(cfg32, params, batch, cache_len)
+            for i in range(sargs.gen_len - 1):
+                cache, _ = M.decode_step(cfg32, params, cache, toks[:, i], pos0 + i)
+        if not max(e2e, shadow.max_rel) <= LM_F32_REL:
+            raise AssertionError(f"{arch} smoke float32 card vs host: end to end {e2e:.3g}, "
+                                 f"layer by layer {shadow.max_rel:.3g} (bound {LM_F32_REL})")
+        summary["smoke"][arch] = dict(end_to_end_rel=e2e, layer_rel=shadow.max_rel)
+    print(f"[lm] smoke configs on {device} against the host, float32 (TF32 off), relative max "
+          f"error end to end / layer by layer (bound {LM_F32_REL}); bf16 logits finite: "
+          + ", ".join(f"{a} {v['end_to_end_rel']:.2g} / {v['layer_rel']:.2g}"
+                      for a, v in summary["smoke"].items()))
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != after_packed:
+        raise AssertionError(f"the LM path launched more kernels after the plan: {launches}")
+    errs = {}
+    for key, call in plan_calls.first.items():  # one K1 input per shape the GA gave it
+        for name, c in check_dse_kernels({key[:2]: call}, device,
+                                         f"the {LM_ARCH} plan's").items():
+            errs[name] = max(errs.get(name, 0), c["err"])
+    if set(errs) != {"binpack_fitness_cuda"}:
+        raise AssertionError(f"the {LM_ARCH} plan's ops calls reached {sorted(errs)}")
+    summary[LM_ARCH]["k1_shapes"] = [list(key[2]) for key in plan_calls.first]
+    seconds = time.perf_counter() - t_phase
+    summary["seconds"] = seconds
+    print(f"[lm] phase took {seconds:.1f}s")
+    return dict(launches=launches, summary=summary, errs=errs)
+
+
 # ----------------------------------------------------------------- phase 7
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
@@ -3336,6 +3705,9 @@ def main() -> int:
     shard = shard_path(device, dse, portfolio)
     for name, e in shard["errs"].items():
         errs[name] = max(errs[name], e)
+    lm = lm_path(device)
+    for name, e in lm["errs"].items():
+        errs[name] = max(errs[name], e)
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
     dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
@@ -3350,7 +3722,7 @@ def main() -> int:
         by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name],
                    "memory": memory["launches"][name], "dse": dse["launches"][name],
                    "resume": resumed["launches"][name], "serve": serve["launches"][name],
-                   "sharded": shard["launches"][name]}
+                   "sharded": shard["launches"][name], "lm": lm["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -3390,6 +3762,7 @@ def main() -> int:
     print(f"[resume] {json.dumps(resumed['runs'])}")
     print(f"[serve] {json.dumps(serve['runs'])}")
     print(f"[shard] {json.dumps({k: shard[k] for k in ('mesh', 'seconds', 'runs', 'ragged')})}")
+    print(f"[lm] {json.dumps(lm['summary'])}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

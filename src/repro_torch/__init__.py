@@ -3,5 +3,8 @@
 `repro_torch.core` mirrors `repro.core` (problem model, heuristics, GA,
 SA, `pack`); `repro_torch.kernels` holds the hand-written CUDA kernels
 that replace the reference's Pallas kernels, each beside its plain PyTorch
-version.  The port imports neither JAX nor the `repro` package.
+version.  `repro_torch.data`, `repro_torch.configs` and
+`repro_torch.models` carry the data pipeline and the LM stack's serving
+path, which `repro_torch.launch.decode_demo` drives.  The port imports
+neither JAX nor the `repro` package.
 """

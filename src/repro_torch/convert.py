@@ -75,7 +75,8 @@ def params_from_arrays(tree, device=None):
     lists / tuples) of numpy arrays, e.g. ``jax.device_get`` of
     ``repro.models.model.init_params(...)``, become the same structure of
     torch tensors on ``device`` (``None`` means ``"cuda"``), values and
-    dtypes unchanged."""
+    dtypes unchanged (numpy has no bfloat16 of its own: an ``ml_dtypes``
+    bfloat16 array comes across bit for bit through its 16-bit pattern)."""
     device = resolve_device(device)
 
     def convert(node):
@@ -85,6 +86,9 @@ def params_from_arrays(tree, device=None):
             return type(node)(convert(v) for v in node)
         if node is None:
             return None
-        return torch.from_numpy(np.array(node)).to(device)
+        arr = np.array(node)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+        return torch.from_numpy(arr).to(device)
 
     return convert(tree)

@@ -8,7 +8,10 @@ backend; K6 within float32 rounding of its plain version, the memory
 planner on the card equal to the host backend, and the DSE sweep (SA
 fleet through K3 / K4, GA lockstep through K1 / K2) equal to the host
 backend, also after a crash and a resume; the packing service on the card
-(SA-S through K3 / K4) equal to a host-backend service.
+(SA-S through K3 / K4) equal to a host-backend service; the data pipeline
+packing on the card as on the host, the LM's smoke configs on the card
+within float32 rounding of the host, and ``decode_demo --packed`` (the
+plan on K1) serving bit-equal to the unpacked tree.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -657,3 +660,88 @@ def test_sharded_sweep_on_card_matches_host_backend(monkeypatch):
     k3, k4 = counts.pop("sa_step_deltas_cuda"), counts.pop("sa_step_deltas_kinds_cuda")
     assert k3 > 0 and k4 > 0 and k3 + k4 == 2 * len(calls), (k3, k4, len(calls))
     assert not any(counts.values()), counts
+
+
+def _f32_on_card():
+    """TF32 matmuls off: the float32 checks need float32 products."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.gpu
+def test_data_pipeline_on_card_matches_host():
+    """`SyntheticTokenPipeline` packing through the port's `pack` on the card
+    gives the host's batches, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+
+    for pack in (True, False):
+        cfg = DataConfig(seq_len=256, global_batch=4, vocab_size=1000, seed=2, pack=pack)
+        card = SyntheticTokenPipeline(cfg, device="cuda")
+        host = SyntheticTokenPipeline(cfg, device="cpu")
+        for _ in range(3):
+            a, b = card.next_batch(), host.next_batch()
+            assert all(np.array_equal(a[k], b[k]) for k in b)
+        assert card.state() == host.state()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m", "hymba-1.5b",
+                                  "whisper-medium", "phi-3-vision-4.2b", "mamba2-1.3b"])
+def test_lm_smoke_on_card_matches_host(arch):
+    """Float32 prefill and decode steps on the card, within 1e-4 (relative
+    max error) of the host's on the same weights, teacher-forced on the
+    card's greedy tokens (the bound of tests/test_torch_models.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import decode_demo
+    from repro_torch.models import model as M
+
+    _f32_on_card()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = M.init_params(cfg, 0, device="cuda")
+    host = M.tree_map(lambda x: x.cpu(), params)
+    args = decode_demo.parse_args(["--arch", arch, "--batch", "2", "--prompt-len", "12",
+                                   "--gen-len", "5", "--device", "cuda"])
+    batch, cache_len = decode_demo.make_batch(cfg, args, torch.device("cuda"))
+    toks, logits, _, _ = decode_demo.generate(cfg, params, batch, 5, cache_len)
+    hb = {k: v.cpu() for k, v in batch.items()}
+    cache, lh = M.prefill(cfg, host, hb, cache_len)
+    pos0 = hb["tokens"].shape[1] + (cfg.num_patches if "patches" in hb else 0)
+    want = [lh[:, -1, : cfg.vocab_size]]
+    for i in range(4):
+        cache, lh = M.decode_step(cfg, host, cache, toks[:, i].cpu(), pos0 + i)
+        want.append(lh[:, -1, : cfg.vocab_size])
+    want = torch.stack(want)
+    err = float((logits.cpu() - want).abs().max() / want.abs().max())
+    assert err < 1e-4, err
+
+
+@pytest.mark.gpu
+def test_decode_demo_packed_on_card():
+    """``decode_demo --packed`` on the card: the plan's GA launches K1 and
+    nothing else launches; the served tree equals the drawn one; packed and
+    unpacked generations are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch import decode_demo
+    from repro_torch.memory.planner import leaves_with_paths
+
+    argv = ["--arch", "granite-moe-1b-a400m", "--batch", "2", "--prompt-len", "16",
+            "--gen-len", "8", "--device", "cuda"]
+    kernels.reset_launch_counts()
+    packed = decode_demo.run(decode_demo.parse_args(argv + ["--packed"]))
+    counts = kernels.launch_counts()
+    assert counts.pop("binpack_fitness_cuda") > 0 and not any(counts.values()), counts
+    assert all(b.is_cuda for b in packed.store.banks.values())
+    tree = dict(leaves_with_paths(packed.tree))
+    for path, x in leaves_with_paths(packed.params):
+        assert torch.equal(x, tree[path]), path
+    plain = decode_demo.run(decode_demo.parse_args(argv))
+    assert np.array_equal(packed.tokens, plain.tokens)
+    assert torch.equal(packed.logits, plain.logits)
+    assert torch.isfinite(plain.logits).all()

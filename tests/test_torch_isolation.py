@@ -18,13 +18,18 @@ FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_no_jax_and_no_reference():
-    # the card-only test and the service's traffic CLI run where there is
-    # no JAX, so they are held to the same rule
+    # the card-only test, the service's traffic CLI and the packed-serving
+    # example run where there is no JAX, so they are held to the same rule
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
         ROOT / "tools" / "serve_traffic_torch.py",
+        ROOT / "examples" / "serve_packed_torch.py",
     ]
     assert len(files) > 10
+    for sub in ("data", "models", "configs"):
+        assert (ROOT / "src" / "repro_torch" / sub / "__init__.py") in files
+    for name in ("train.py", "decode_demo.py"):
+        assert (ROOT / "src" / "repro_torch" / "launch" / name) in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -166,6 +171,34 @@ def test_cpu_memory_planner_loads_neither_jax_nor_reference():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_cpu_lm_serving_loads_neither_jax_nor_reference():
+    """The data pipeline, the configs, the model and ``decode_demo --packed``
+    (the planner, the store, the served tree) import nothing of JAX or the
+    reference."""
+    code = (
+        "import sys\n"
+        "from repro_torch.data import DataConfig, SyntheticTokenPipeline\n"
+        "from repro_torch.launch import decode_demo\n"
+        "import repro_torch.configs as cf\n"
+        "b = SyntheticTokenPipeline(DataConfig(seq_len=64, global_batch=2), device='cpu').next_batch()\n"
+        "assert b['tokens'].shape == (2, 64)\n"
+        "assert cf.get_config('qwen3-0.6b').param_count() > 5e8\n"
+        "gen = decode_demo.main(['--arch', 'hymba-1.5b', '--batch', '2', '--prompt-len', '8',\n"
+        "                        '--gen-len', '3', '--packed', '--device', 'cpu'])\n"
+        "assert gen.shape == (2, 3)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_default_device_is_cuda_and_never_falls_back():
