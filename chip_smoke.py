@@ -54,7 +54,7 @@ no result line):
    positions (the 8 Table-1 accelerators with no device, on ZU7EV and on
    U50, seeds 0 and 1, plus two renamed copies: 48 solved in two
    cost-model groups, 2 fingerprint-dedup hits), SA-S x8 1000 iterations
-   and GA-NFD 20 generations (RN152-W1A2's hyperparameters, n_pop 75),
+   and GA-NFD 10 generations (RN152-W1A2's hyperparameters, n_pop 75),
    each through the kernels (launch counts reset just before the sweep
    and read just after: K3 and K4, or K1 and K2, and nothing else) and
    through host numpy, bit for bit; RN152-W1A2 and RN152-W1A2@U50 also
@@ -66,7 +66,7 @@ no result line):
 6b. crash-safe resume, in a temporary directory removed at the end: the
    SA fleet checkpointed every 250 iterations, killed after its second
    snapshot (an exception from ``on_checkpoint``) and resumed, then its
-   newest snapshot torn and resumed again; the GA fleet every 5
+   newest snapshot torn and resumed again; the GA fleet every 4
    generations, killed after snapshot 2 and resumed; the RN152-W1A2
    default-lineup portfolio every 8 barriers, killed after snapshot 2 and
    resumed; each resumed record equal to the uninterrupted cuda run (the
@@ -119,6 +119,20 @@ no result line):
    inputs within 1e-4; every arch at its smoke config against the host
    within 1e-4 (end to end and layer by layer); K1 against its plain
    version at each shape the plan gave it;
+6f. LM training, in a temporary directory removed at the end: qwen3-0.6b
+   at its published widths (bf16 compute, remat per layer) trained 8
+   steps through ``TrainLoop`` on ``SyntheticTokenPipeline`` batches of 8 x
+   512 tokens, checkpoints every 4 steps: every loss finite, ms a step,
+   tokens/s, peak memory, the optimizer's share, one profiled step (busy
+   share, kernels a step), K1-K6 launched by none of it; float32 card
+   against host (TF32 off) on a 2-layer cut at full width (loss, every
+   gradient leaf, the updated parameters) and on every smoke config,
+   within 1e-4, and one prefill past ``_BLOCK_KV`` keys; ``python -m
+   repro_torch.launch.train`` on the cut sent SIGTERM after its second
+   step (emergency checkpoint restored on the card bit-equal, the pipeline
+   at the same batch) and resumed to the end; ``tools/sweep_resume_torch.py
+   --backend cuda`` (K3) SIGKILLed after snapshot 2 and resumed, its
+   record equal to the uninterrupted cuda run's and the python run's;
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -1217,10 +1231,12 @@ DSE_SEEDS = (0, 1)
 DSE_RENAMED = (("CNV-W1A1", None, 0), ("RN50-W1A2", "U50", 1))
 DSE_BUDGET = dict(max_seconds=1e9, patience=10**9)
 # bench_dse.py anneals 2500 iterations; the GA takes RN152-W1A2's Table-2
-# hyperparameters (n_pop=75) for every candidate
+# hyperparameters (n_pop=75) for every candidate, 10 generations (20 until
+# the training phase 6f needed the time: a GA sweep's NFD start, 55-63 % of
+# it, does not shrink with depth)
 DSE_ALGS = {
     "sa-s": dict(n_chains=8, max_iterations=1000),
-    "ga-nfd": dict(max_generations=20),
+    "ga-nfd": dict(max_generations=10),
 }
 # one candidate per group and algorithm is also held against its own pack()
 DSE_STANDALONE = ((PROBLEM, None, 0), (PROBLEM, DEVICE_U50, 0))
@@ -1231,7 +1247,7 @@ DSE_KERNELS = {
 }
 # the resume phase: snapshot spacing per lane, and the snapshot after which
 # each run is killed
-RESUME_EVERY = {"sa-s": 250, "ga-nfd": 5, "portfolio": 8}
+RESUME_EVERY = {"sa-s": 250, "ga-nfd": 4, "portfolio": 8}
 RESUME_KILL_AFTER = 2
 
 
@@ -1526,7 +1542,7 @@ def resume_path(device, dse, portfolio_key_cuda) -> dict:
     """Crash-safe resume on the card, in a temporary directory removed at
     the end: the DSE phase's SA-S fleet checkpointed every 250 iterations,
     killed after snapshot 2 and resumed, then its newest snapshot torn and
-    resumed again; the GA-NFD fleet every 5 generations, killed after
+    resumed again; the GA-NFD fleet every 4 generations, killed after
     snapshot 2 and resumed; the RN152-W1A2 default-lineup portfolio every 8
     barriers, killed after snapshot 2 and resumed.  Every resumed record
     must equal the uninterrupted cuda run.  Launch counts are set to 0 just
@@ -2717,6 +2733,521 @@ def lm_path(device) -> dict:
     return dict(launches=launches, summary=summary, errs=errs)
 
 
+# ---------------------------------------------------------------- phase 6f
+# LM training: qwen3-0.6b at its published widths (28 layers, d 1024, vocab
+# 151936: 0.60 B float32 parameters seeded on the card, bf16 compute, remat
+# per layer) trained through `TrainLoop` on the default data pipeline's
+# sequence length and batch; then float32 card against host on a 2-layer
+# cut at full width and on every smoke config; then the launcher killed by
+# SIGTERM and resumed in child processes; then the port's resume CLI on the
+# card, killed by SIGKILL and resumed.
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_DATA = dict(seq_len=512, global_batch=8)  # DataConfig's defaults
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_CUT = dict(n_layers=2)  # the card-vs-host cut: full width, 2 layers
+TRAIN_CUT_BATCH = (2, 64)
+TRAIN_LONG_PREFILL = 1100  # past attention._BLOCK_KV (1024): the blockwise path
+TRAIN_SIGTERM = ("--arch", TRAIN_ARCH, "--scale", "full", "--layers", "2", "--batch", "2",
+                 "--seq", "64", "--steps", "4", "--ckpt-every", "2", "--device", "cuda")
+TRAIN_SIGTERM_AFTER = 2  # the checkpoint whose write starts the SIGTERM
+ADAM_CONDITIONED = 100  # clipped gradient elements at least this many eps
+TRAIN_CLI = ("--mode", "sweep", "--problems", "CNV-W1A1,CNV-W2A2", "--algorithm", "sa-s",
+             "--max-iterations", "2000", "--checkpoint-every", "250")
+
+
+def train_opt_config(steps: int):
+    """The training launcher's optimizer for ``--steps steps`` at its
+    default ``--lr``."""
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(learning_rate=3e-4, total_steps=steps,
+                       warmup_steps=max(10, steps // 20))
+
+
+def train_batch(cfg, rng, batch, seq, device):
+    """Seeded tokens and targets (a few masked), plus a VLM's patches or
+    whisper's frames, as `tests/test_torch_train_loss.py` draws them."""
+    import numpy as np
+    import torch
+
+    n_text = seq - (cfg.num_patches if cfg.frontend == "vision_stub" else 0)
+    if cfg.encoder_decoder:
+        n_text = 16
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, n_text)).astype(np.int32),
+           "targets": rng.integers(0, cfg.vocab_size, (batch, n_text)).astype(np.int32)}
+    out["targets"][0, :3] = -1
+    if cfg.frontend == "vision_stub":
+        out["patches"] = (rng.normal(size=(batch, cfg.num_patches, cfg.d_model)) * 0.1
+                          ).astype(np.float32)
+    if cfg.encoder_decoder:
+        out["frames"] = (rng.normal(size=(batch, seq, cfg.d_model)) * 0.1).astype(np.float32)
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+def train_card_vs_host(cfg, params, batch) -> dict:
+    """One float32 loss and gradient, then one `make_train_step`, on the
+    card and on the host from the same weights and batch; the largest
+    relative error of the loss, the metrics, each gradient leaf and the
+    updated parameters.
+
+    A key bias of attention without RoPE (whisper) has a zero gradient in
+    exact arithmetic (softmax is shift-invariant), so it is held to the
+    bound times the tree's largest host gradient, as in
+    `tests/test_torch_train_loss.py`.  Adam divides each moment by its root
+    mean square plus ``eps`` (1e-8): where a clipped gradient element is
+    near ``eps`` the first update is ``lr * g / (|g| + eps)``, which turns
+    float32 noise in ``g`` into a visible difference of up to ``2 * lr``.
+    So the updated parameters are held at the bound where every clipped
+    gradient element is at least ``ADAM_CONDITIONED * eps``
+    (``params_conditioned``), everywhere to ``2 * lr`` plus the bound
+    (``params_abs``), and the whole-leaf error is recorded
+    (``params``); the optimizer itself is held at the bound on identical
+    gradients (the host's, on the card: ``optimizer``)."""
+    import torch
+
+    from repro_torch.memory.planner import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+    from repro_torch.runtime import TrainState, make_train_step
+    from repro_torch.runtime import steps as S
+
+    host = M.tree_map(lambda x: x.cpu(), params)
+    hbatch = to_host(batch)
+    loss, metrics, grads = S._grads(cfg, params, batch)
+    hloss, hmetrics, hgrads = S._grads(cfg, host, hbatch)
+    out = dict(loss=rel_err(loss, hloss), tokens=float(metrics["tokens"]),
+               aux=rel_err(metrics["aux_loss"], hmetrics["aux_loss"]))
+    scale = max(float(g.abs().max()) for _, g in leaves_with_paths(hgrads))
+    grad_rel, zero_grad = 0.0, 0.0
+    for (path, g), (_, h) in zip(leaves_with_paths(grads), leaves_with_paths(hgrads)):
+        if cfg.encoder_decoder and path.endswith("k/bias"):
+            zero_grad = max(zero_grad, float(g.abs().max()) / scale,
+                            float(h.abs().max()) / scale)
+        else:
+            grad_rel = max(grad_rel, rel_err(g, h))
+    out.update(grad=grad_rel, zero_grad_over_scale=zero_grad,
+               leaves=sum(1 for _ in leaves_with_paths(hgrads)))
+    del grads
+    opt = train_opt_config(TRAIN_STEPS)
+    step = make_train_step(cfg, opt)
+    new, m = step(TrainState(params, adamw_init(params)), batch)
+    hnew, hm = step(TrainState(host, adamw_init(host)), hbatch)
+    out["metrics"] = max(rel_err(m[k], hm[k]) for k in hm)
+    out["grad_norm"] = float(m["grad_norm"])
+    same, _, _ = adamw_update(opt, params, M.tree_map(lambda g: g.to(batch["tokens"].device),
+                                                      hgrads), adamw_init(params))
+    out["optimizer"] = max(rel_err(p, h) for (_, p), (_, h) in
+                           zip(leaves_with_paths(same), leaves_with_paths(hnew.params)))
+    lr = float(cosine_schedule(opt, torch.ones((), dtype=torch.int32)))
+    clip = min(1.0, opt.clip_norm / max(float(hm["grad_norm"]), 1e-9))
+    out.update(params=0.0, params_conditioned=0.0, params_abs=0.0, params_worst_leaf=None)
+    for (path, p), (_, h), (_, g) in zip(leaves_with_paths(new.params),
+                                         leaves_with_paths(hnew.params),
+                                         leaves_with_paths(hgrads)):
+        diff = (p.cpu() - h).abs()
+        top = float(h.abs().max()) + 1e-9
+        whole = float(diff.max()) / top
+        if whole > out["params"]:
+            out["params"], out["params_worst_leaf"] = whole, path
+        ok = (g.abs() * clip) >= ADAM_CONDITIONED * opt.eps
+        if bool(ok.any()):
+            out["params_conditioned"] = max(out["params_conditioned"],
+                                            float(diff[ok].max()) / top)
+        out["params_abs"] = max(out["params_abs"],
+                                float((diff - LM_F32_REL * top).max()) / (2 * lr))
+    return out
+
+
+def check_train_parity(o, what) -> None:
+    """`train_card_vs_host`'s record within its bounds (``params``, the
+    whole-leaf error, is recorded, not held: see there)."""
+    keys = ("loss", "aux", "grad", "zero_grad_over_scale", "metrics", "optimizer",
+            "params_conditioned")
+    if not (max(o[k] for k in keys) <= LM_F32_REL and o["params_abs"] <= 1.0):
+        raise AssertionError(f"{what} training card vs host: {o}")
+
+
+def sigterm_lane(root, device) -> dict:
+    """``python -m repro_torch.launch.train`` on the 2-layer cut: SIGTERM as
+    soon as the write of its step-2 checkpoint starts (its second step
+    done), which must leave an emergency checkpoint before the last step;
+    that checkpoint restored on the card bit-equal to its arrays, with the
+    pipeline's state after that many batches; then ``--resume`` finishes
+    the run, its data state that of an uninterrupted pipeline."""
+    import os
+    import signal
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, read_atomic_dir
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.memory.planner import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainState
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+
+    ck = root / "sigterm"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_SIGTERM,
+           "--ckpt-dir", str(ck)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = train.parse_args(list(TRAIN_SIGTERM))
+    total = args.steps
+    out = {}
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.perf_counter() + 300
+        while not list(ck.glob(f"step_{TRAIN_SIGTERM_AFTER:08d}*")):
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"train child ended or stalled before its step-"
+                                     f"{TRAIN_SIGTERM_AFTER} checkpoint:\n{proc.stdout.read()}")
+            time.sleep(0.005)
+        proc.send_signal(signal.SIGTERM)
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["sigterm_seconds"] = time.perf_counter() - t
+    mgr = CheckpointManager(ck)
+    stopped = mgr.latest_step()
+    if proc.returncode != 0 or f"done at step {stopped}" not in log or not (
+            TRAIN_SIGTERM_AFTER <= stopped < total):
+        raise AssertionError(f"SIGTERM run: exit {proc.returncode}, newest checkpoint "
+                             f"{stopped} (want an emergency one before {total}):\n{log}")
+    flat, manifest = read_atomic_dir(ck / f"step_{stopped:08d}")
+    cfg = train.scaled_config(args)
+    params = M.init_params(cfg, args.seed + 1, device)  # other values: all restored
+    pipe = SyntheticTokenPipeline(DataConfig(seq_len=args.seq, global_batch=args.batch,
+                                             vocab_size=cfg.vocab_size, seed=args.seed),
+                                  device=device)
+    loop = TrainLoop(None, pipe, mgr, LoopConfig(total_steps=total))
+    start, restored = loop.resume_or_init(TrainState(params, adamw_init(params)))
+    if start != stopped or not isinstance(restored, TrainState):
+        raise AssertionError(f"restored step {start}, type {type(restored)}")
+    keys = []
+    for name, tree in (("params", restored.params), ("opt", restored.opt)):
+        for path, x in leaves_with_paths(tree):
+            key = f".{name}/{path}"
+            want = flat[key]
+            want = want if isinstance(want, torch.Tensor) else torch.from_numpy(want)
+            if x.device.type != "cuda" or x.dtype != want.dtype or not torch.equal(x.cpu(), want):
+                raise AssertionError(f"restored {key} differs from the checkpoint's array")
+            keys.append(key)
+    if sorted(keys) != sorted(flat):
+        raise AssertionError(f"restored keys {sorted(keys)} vs {sorted(flat)}")
+    fresh = SyntheticTokenPipeline(pipe.cfg, device=device)
+    for _ in range(stopped):
+        fresh.next_batch()
+    if pipe.state() != fresh.state() or manifest["extra"]["data"] != fresh.state():
+        raise AssertionError(f"pipeline at {pipe.state()}, checkpoint "
+                             f"{manifest['extra']['data']}, {stopped} batches {fresh.state()}")
+    out.update(stopped_at=stopped, total=total, leaves=len(keys),
+               bytes=(ck / f"step_{stopped:08d}" / "arrays.npz").stat().st_size,
+               data_state=pipe.state())
+    del params, restored
+    t = time.perf_counter()
+    proc = subprocess.run(cmd + ["--resume"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    out["resume_seconds"] = time.perf_counter() - t
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0 or f"resumed from checkpoint step {stopped}" not in log or (
+            f"done at step {total}" not in log):
+        raise AssertionError(f"--resume run: exit {proc.returncode}\n{log}")
+    for _ in range(total - stopped):
+        fresh.next_batch()
+    final = mgr.load(total)[1]["extra"]["data"]
+    if final != fresh.state():
+        raise AssertionError(f"resumed run's data state {final} vs {fresh.state()}")
+    out["final_data_state"] = final
+    return out
+
+
+def cli_lane(root) -> dict:
+    """``tools/sweep_resume_torch.py --backend cuda`` (SA-S: K3 / K4)
+    uninterrupted, SIGKILLed after its second snapshot, resumed, and once on
+    ``--backend python``: three equal parity records; each child prints the
+    kernels it launched."""
+    import os
+    import signal
+
+    cmd = [sys.executable, str(ROOT / "tools" / "sweep_resume_torch.py"), *TRAIN_CLI,
+           "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = (("full", ["--backend", "cuda"], 0), ("killed", ["--backend", "cuda",
+            "--die-at-checkpoint", "2"], -signal.SIGKILL),
+            ("resumed", ["--backend", "cuda", "--resume"], 0),
+            ("python", ["--backend", "python"], 0))
+    out, records = {}, {}
+    for name, extra, rc_want in runs:
+        ck = root / ("cli-ck" if name in ("killed", "resumed") else f"cli-{name}")
+        rec = root / f"cli-{name}.json"
+        t = time.perf_counter()
+        proc = subprocess.run(cmd + extra + ["--dir", str(ck)]
+                              + (["--out", str(rec)] if rc_want == 0 else []),
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        o = out[name] = dict(exit=proc.returncode, seconds=time.perf_counter() - t)
+        if proc.returncode != rc_want:
+            raise AssertionError(f"resume CLI {name}: exit {proc.returncode}, expected "
+                                 f"{rc_want}\n{proc.stdout}\n{proc.stderr}")
+        if rc_want == 0:
+            records[name] = json.loads(rec.read_text())
+            line = [x for x in proc.stdout.splitlines() if x.startswith("kernel launches ")]
+            o["launches"] = json.loads(line[-1][len("kernel launches "):])
+            sa = o["launches"]["sa_step_deltas_cuda"] + o["launches"]["sa_step_deltas_kinds_cuda"]
+            others = sum(o["launches"].values()) - sa
+            if others or (sa > 0) != (name != "python"):
+                raise AssertionError(f"resume CLI {name} launched {o['launches']}")
+    if not records["full"] == records["resumed"] == records["python"]:
+        raise AssertionError("resume CLI: the resumed / python records differ from the "
+                             "uninterrupted cuda run's")
+    out["costs"] = [c["cost"] for c in records["full"]["candidates"]]
+    return out
+
+
+def long_prefill_checks(device) -> dict:
+    """One float32 prefill past ``_BLOCK_KV`` keys on the card against the
+    host: qwen3-0.6b's 2-layer cut (the blockwise path) and hymba's smoke
+    config (its sliding-window layers on the windowed-blocks path)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model as M
+
+    out = {}
+    for name, cfg in (("qwen3-0.6b cut", dataclasses.replace(get_config(TRAIN_ARCH),
+                                                             **TRAIN_CUT)),
+                      ("hymba-1.5b smoke", get_smoke_config("hymba-1.5b"))):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = M.init_params(cfg, 0, device)
+        host = M.tree_map(lambda x: x.cpu(), params)
+        rng = np.random.default_rng(0)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, TRAIN_LONG_PREFILL)))
+        cache, logits = M.prefill(cfg, params, {"tokens": toks.to(device)}, TRAIN_LONG_PREFILL)
+        hcache, hlogits = M.prefill(cfg, host, {"tokens": toks}, TRAIN_LONG_PREFILL)
+        err = max([rel_err(logits, hlogits)] + [rel_err(a, b) for a, b in
+                                                zip(tensors_of(cache), tensors_of(hcache))])
+        if not err <= LM_F32_REL:
+            raise AssertionError(f"{name} prefill of {TRAIN_LONG_PREFILL} tokens: card vs "
+                                 f"host {err:.3g} (bound {LM_F32_REL})")
+        out[name] = err
+        del params, host, cache
+    return out
+
+
+def train_path(device) -> dict:
+    """LM training on the card, in a temporary directory removed at the
+    end.  Launch counts are set to 0 just before the trainer's run and read
+    just after its profiled step: the training path launches none of
+    K1-K6.
+
+    * qwen3-0.6b at published widths, bf16 compute, ``remat=True``:
+      `make_train_step` through `TrainLoop` on
+      ``SyntheticTokenPipeline(DataConfig(seq_len=512, global_batch=8,
+      vocab_size=151936))`` for 8 steps, checkpoints every 4 steps; every
+      loss finite; ms per step (CUDA-synchronised, excluding the first),
+      tokens/s, peak memory, the optimizer's device share of a step (CUDA
+      events around `adamw_update`); one more step under
+      ``torch.profiler`` (busy share, kernels per step).
+    * Float32, TF32 off, card against host: qwen3-0.6b cut to 2 layers at
+      full width, batch 2 x 64 (loss, metrics, every gradient leaf, the
+      updated parameters), and every arch at its smoke config, within
+      1e-4; one prefill past ``_BLOCK_KV`` keys.
+    * `sigterm_lane` and `cli_lane` (child processes).
+    """
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.memory.planner import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainState, make_train_step
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmul is on; the training checks need float32")
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    summary = {}
+    try:
+        # -- qwen3-0.6b at published widths through TrainLoop
+        cfg = get_config(TRAIN_ARCH)
+        if not cfg.remat or cfg.dtype != "bfloat16":
+            raise AssertionError(f"{TRAIN_ARCH}: remat {cfg.remat}, dtype {cfg.dtype}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, 0, device)
+        state = TrainState(params, adamw_init(params))
+        del params
+        n_params = sum(x.numel() for _, x in leaves_with_paths(state.params))
+        step_fn = make_train_step(cfg, train_opt_config(TRAIN_STEPS))
+        step_ms, opt_events = [], []
+        real_update = S.adamw_update
+
+        def evented_update(*a):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real_update(*a)
+            ev[1].record()
+            opt_events.append(ev)
+            return out
+
+        def timed_step(st, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(st, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        data = DataConfig(vocab_size=cfg.vocab_size, **TRAIN_DATA)
+        pipe = SyntheticTokenPipeline(data, device=device)
+
+        def make_batch(b):
+            return {k: torch.as_tensor(b[k], device=device) for k in ("tokens", "targets")}
+
+        ckpt = CheckpointManager(root / "loop", keep_n=2)
+        loop = TrainLoop(timed_step, pipe, ckpt,
+                         LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                                    log_every=TRAIN_CKPT_EVERY), make_batch=make_batch)
+        kernels.reset_launch_counts()
+        S.adamw_update = evented_update
+        try:
+            t = time.perf_counter()
+            final, state, hist = loop.run(state, 0)
+            loop_s = time.perf_counter() - t
+            batch = make_batch(pipe.next_batch())
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                state, pm = step_fn(state, batch)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t
+        finally:
+            S.adamw_update = real_update
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if any(launches.values()):
+            raise AssertionError(f"the trainer launched kernels: {launches}")
+        if final != TRAIN_STEPS or len(hist) != TRAIN_STEPS or not np.all(np.isfinite(hist)) \
+                or not np.isfinite(float(pm["loss"])):
+            raise AssertionError(f"{TRAIN_ARCH} training: step {final}, losses {hist}")
+        if ckpt.all_steps() != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+            raise AssertionError(f"checkpoints {ckpt.all_steps()}")
+        opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+        warm = step_ms[1:TRAIN_STEPS]
+        ms = statistics.mean(warm)
+        tokens = data.global_batch * data.seq_len
+        prof_o = device_share(prof, prof_wall * 1e6, f"train {TRAIN_ARCH} step",
+                              f"one train step, batch {data.global_batch} x {data.seq_len}")
+        summary[TRAIN_ARCH] = dict(
+            params=n_params, losses=hist, step_ms=step_ms, step_ms_mean=ms,
+            step_ms_median=statistics.median(warm), tokens_per_s=tokens / ms * 1e3,
+            loop_seconds=loop_s, loop_tokens_per_s=tokens * TRAIN_STEPS / loop_s,
+            opt_ms=opt_ms, opt_share=statistics.mean(opt_ms[1:TRAIN_STEPS]) / ms,
+            peak_bytes=peak, checkpoints=ckpt.all_steps(),
+            ckpt_bytes=(ckpt.dir / f"step_{TRAIN_STEPS:08d}" / "arrays.npz").stat().st_size,
+            profile=prof_o, launches=launches)
+        q = summary[TRAIN_ARCH]
+        print(f"[train] {TRAIN_ARCH} at published widths ({n_params} float32 parameters, "
+              f"bf16 compute, remat per layer): {TRAIN_STEPS} steps of batch "
+              f"{data.global_batch} x {data.seq_len} through TrainLoop, losses "
+              f"{[round(x, 4) for x in hist]} (all finite); step {ms:.1f} ms mean, "
+              f"{q['step_ms_median']:.1f} ms median over steps 2-{TRAIN_STEPS} (first "
+              f"{step_ms[0]:.1f} ms), {q['tokens_per_s']:.0f} tokens/s; the loop with data "
+              f"and checkpoints {loop_s:.1f}s ({q['loop_tokens_per_s']:.0f} tokens/s); "
+              f"optimizer {statistics.mean(opt_ms[1:TRAIN_STEPS]):.1f} ms of a step "
+              f"(share {q['opt_share']:.3f}); peak {peak / 2**30:.2f} GiB; checkpoints "
+              f"{ckpt.all_steps()} of {q['ckpt_bytes']} B; kernel launches "
+              f"{json.dumps(launches)}")
+        if prof_o.get("device") != "not measured":
+            print(f"[train] profiled step: busy share {prof_o['busy_share']:.4f}, "
+                  f"{prof_o['kernel_n']} kernels a step")
+        del state, loop, batch
+        torch.cuda.empty_cache()
+
+        # -- the launcher under SIGTERM and the resume CLI run in child
+        # processes (one lane each, their children one at a time) while this
+        # process holds the card against the host; no timing is taken here
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            sig_lane = pool.submit(sigterm_lane, root, device)
+            cli_run = pool.submit(cli_lane, root)
+            # -- float32 card against host
+            cut = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32", **TRAIN_CUT)
+            params = M.init_params(cut, 0, device)
+            rng = np.random.default_rng(0)
+            t = time.perf_counter()
+            c = train_card_vs_host(cut, params, train_batch(cut, rng, *TRAIN_CUT_BATCH, device))
+            c["seconds"] = time.perf_counter() - t
+            del params
+            summary["cut"] = c
+            check_train_parity(c, f"{TRAIN_ARCH} 2-layer cut")
+            print(f"[train] {TRAIN_ARCH} cut to 2 layers at full width, float32 (TF32 off), batch "
+                  f"{TRAIN_CUT_BATCH[0]} x {TRAIN_CUT_BATCH[1]}, card vs host relative max error "
+                  f"(bound {LM_F32_REL}): loss {c['loss']:.3g}, {c['leaves']} gradient leaves "
+                  f"{c['grad']:.3g}, metrics {c['metrics']:.3g}, the optimizer on the same "
+                  f"gradients {c['optimizer']:.3g}, updated params where the clipped gradient is "
+                  f">= {ADAM_CONDITIONED} eps {c['params_conditioned']:.3g}; whole leaves "
+                  f"{c['params']:.3g} ({c['params_worst_leaf']}; excess over the bound "
+                  f"{c['params_abs']:.3g} of 2 lr); {c['seconds']:.1f}s")
+            summary["smoke"] = {}
+            for arch in ARCHS:
+                scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+                params = M.init_params(scfg, 0, device)
+                o = train_card_vs_host(scfg, params, train_batch(scfg, rng, 2, 32, device))
+                summary["smoke"][arch] = o
+                check_train_parity(o, f"{arch} smoke")
+            print(f"[train] smoke configs, float32, card vs host relative max error, loss / "
+                  f"gradient leaves / updated params, whole leaves (bound {LM_F32_REL}): "
+                  + ", ".join(f"{a} {o['loss']:.2g} / {o['grad']:.2g} / {o['params']:.2g}"
+                              for a, o in summary["smoke"].items()))
+            summary["long_prefill"] = long_prefill_checks(device)
+            print(f"[train] float32 prefill of {TRAIN_LONG_PREFILL} tokens (past _BLOCK_KV) card "
+                  f"vs host: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                             summary["long_prefill"].items()))
+            torch.cuda.empty_cache()
+            summary["sigterm"] = s = sig_lane.result()
+            summary["cli"] = cl = cli_run.result()
+        print(f"[train] launcher on the 2-layer cut: SIGTERM once its step-"
+              f"{TRAIN_SIGTERM_AFTER} checkpoint began, emergency checkpoint at step "
+              f"{s['stopped_at']} of {s['total']} ({s['bytes']} B), restored on {device} bit-"
+              f"equal ({s['leaves']} leaves), pipeline at {s['data_state']}; --resume "
+              f"finished at {s['total']} with data state {s['final_data_state']} "
+              f"({s['sigterm_seconds']:.1f}s + {s['resume_seconds']:.1f}s)")
+        print(f"[train] tools/sweep_resume_torch.py: cuda uninterrupted, SIGKILLed after "
+              f"snapshot 2 (exit {cl['killed']['exit']}) and resumed, and python: equal "
+              f"records (costs {cl['costs']}); launches "
+              + "; ".join(f"{k} {json.dumps({n: v for n, v in cl[k]['launches'].items() if v})}"
+                          for k in ("full", "resumed", "python"))
+              + "; seconds " + ", ".join(f"{k} {cl[k]['seconds']:.1f}"
+                                          for k in ("full", "killed", "resumed", "python")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    summary["seconds"] = seconds
+    print(f"[train] phase took {seconds:.1f}s")
+    return dict(launches=launches, summary=summary)
+
+
 # ----------------------------------------------------------------- phase 7
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
@@ -3708,6 +4239,7 @@ def main() -> int:
     lm = lm_path(device)
     for name, e in lm["errs"].items():
         errs[name] = max(errs[name], e)
+    trained = train_path(device)
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
     dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
@@ -3722,7 +4254,8 @@ def main() -> int:
         by_path = {"engines": launches[name], "portfolio": portfolio["launches"][name],
                    "memory": memory["launches"][name], "dse": dse["launches"][name],
                    "resume": resumed["launches"][name], "serve": serve["launches"][name],
-                   "sharded": shard["launches"][name], "lm": lm["launches"][name]}
+                   "sharded": shard["launches"][name], "lm": lm["launches"][name],
+                   "training": trained["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -3763,6 +4296,7 @@ def main() -> int:
     print(f"[serve] {json.dumps(serve['runs'])}")
     print(f"[shard] {json.dumps({k: shard[k] for k in ('mesh', 'seconds', 'runs', 'ragged')})}")
     print(f"[lm] {json.dumps(lm['summary'])}")
+    print(f"[train] {json.dumps(trained['summary'])}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -4,7 +4,8 @@
 SA, `pack`); `repro_torch.kernels` holds the hand-written CUDA kernels
 that replace the reference's Pallas kernels, each beside its plain PyTorch
 version.  `repro_torch.data`, `repro_torch.configs` and
-`repro_torch.models` carry the data pipeline and the LM stack's serving
-path, which `repro_torch.launch.decode_demo` drives.  The port imports
-neither JAX nor the `repro` package.
+`repro_torch.models` carry the data pipeline and the LM stack, served by
+`repro_torch.launch.decode_demo` and trained by `repro_torch.launch.train`
+(`repro_torch.optim`, `repro_torch.runtime`).  The port imports neither
+JAX nor the `repro` package.
 """

@@ -24,12 +24,14 @@ Guarantees:
   hook drains the in-flight write so interpreter shutdown can't tear it;
 * keep_n garbage collection of old steps.
 
-Trees are nested dicts, lists and plain tuples whose leaves are numpy
-arrays, torch tensors or scalars; ``None`` is an empty subtree.  Keys are the
-path components joined with ``/`` (dict keys sorted, sequences indexed),
-as JAX's tree flattening gives them for the reference.  bfloat16 tensors
-are stored as their ``uint16`` bits under a ``::bf16`` key suffix and read
-back as ``torch.bfloat16``.
+Trees are nested dicts, lists, tuples and ``NamedTuple``s (such as
+``repro_torch.runtime.TrainState``) whose leaves are numpy arrays, torch
+tensors or scalars; ``None`` is an empty subtree.  Keys are the path
+components joined with ``/`` (dict keys sorted, a ``NamedTuple``'s fields
+as ``.<field>``, other sequences indexed), as JAX's tree flattening gives
+them for the reference, and a ``NamedTuple`` is rebuilt as its own type.
+bfloat16 tensors are stored as their ``uint16`` bits under a ``::bf16``
+key suffix and read back as ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -134,14 +136,22 @@ def read_atomic_dir(path: str | Path) -> tuple[dict, dict]:
     return flat, manifest
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
 def _leaves(tree, prefix=()):
     """``(path, leaf)`` pairs in JAX's flattening order: dict keys sorted,
-    sequences by index, ``None`` an empty subtree."""
+    a ``NamedTuple``'s fields in order under ``.<field>`` (JAX's attribute
+    key), other sequences by index, ``None`` an empty subtree."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (k,))
+    elif _is_namedtuple(tree):
+        for f in tree._fields:
+            yield from _leaves(getattr(tree, f), prefix + ("." + f,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, prefix + (i,))
@@ -181,6 +191,10 @@ def _rebuild(like, fn, prefix=()):
         return None
     if isinstance(like, dict):
         return {k: _rebuild(v, fn, prefix + (k,)) for k, v in like.items()}
+    if _is_namedtuple(like):
+        return type(like)(*(
+            _rebuild(getattr(like, f), fn, prefix + ("." + f,)) for f in like._fields
+        ))
     if isinstance(like, (list, tuple)):
         items = [_rebuild(v, fn, prefix + (i,)) for i, v in enumerate(like)]
         return items if isinstance(like, list) else tuple(items)

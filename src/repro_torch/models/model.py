@@ -5,14 +5,20 @@ the reference's: nested dicts of tensors whose layers are *stacked* on a
 leading ``n_layers`` dimension, so the memory planner (``split_stacked``),
 `PackedParameterStore.unpack()` and `repro_torch.convert.params_from_arrays`
 all work on it.  The reference's ``lax.scan`` over each segment of layers
-with one static window becomes a loop over the layer index; ``remat`` has
-no effect on serving and is left out.  The training loss comes with the
-training slice.
+with one static window becomes a loop over the layer index.  ``cfg.remat``
+(the reference's ``jax.checkpoint`` of the scan body) wraps each layer of
+`forward_hidden` and `_encode` in ``torch.utils.checkpoint.checkpoint``
+while autograd records: the layer's activations are recomputed in the
+backward pass instead of kept, which changes memory, never values.  The
+layers' parameters are indexed out of the stacked leaves inside the
+checkpointed function, so gradients flow back into the stacked
+``(n_layers, ...)`` leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .blocks import block_apply_train, block_decode, block_init, block_prefill
@@ -134,13 +140,26 @@ def forward_hidden(
     """Decoder (or encoder when causal=False) stack over a full sequence.
     Returns (h, summed MoE aux loss)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for _, lp, window in _layers(cfg, params["layers"]):
-        h, a = block_apply_train(
-            cfg, lp, h, positions, window,
-            cross_kv=cross_kv, cross_pos=cross_pos, causal=causal, rope=rope,
-        )
-        aux_total = aux_total + a
+    for start, end, window in layer_segments(cfg):
+        for i in range(start, end):
+            h, a = _run_layer(
+                cfg, params["layers"], i, h, positions, window,
+                cross_kv=cross_kv, cross_pos=cross_pos, causal=causal, rope=rope,
+            )
+            aux_total = aux_total + a
     return h, aux_total
+
+
+def _run_layer(cfg: ModelConfig, stacked: dict, i: int, h, positions, window: int, **kw):
+    """`block_apply_train` on layer ``i`` of ``stacked``; under ``cfg.remat``
+    and while autograd records, as one checkpointed region."""
+
+    def body(hh):
+        return block_apply_train(cfg, tree_index(stacked, i), hh, positions, window, **kw)
+
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, h, use_reentrant=False)
+    return body(h)
 
 
 def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -150,8 +169,7 @@ def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tenso
     h = frames + pos_emb.to(frames.dtype)[None]
     positions = torch.arange(s, dtype=torch.int32, device=frames.device)
     for i in range(cfg.n_encoder_layers):
-        lp = tree_index(params["enc_layers"], i)
-        h, _ = block_apply_train(cfg, lp, h, positions, 0, causal=False)
+        h, _ = _run_layer(cfg, params["enc_layers"], i, h, positions, 0, causal=False)
     return apply_norm(cfg, params["enc_norm"], h)
 
 
@@ -192,6 +210,37 @@ def _decoder_inputs(cfg: ModelConfig, params: dict, batch: dict):
     positions = torch.arange(t, dtype=torch.int32, device=h.device)
     cross_pos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=h.device)
     return h, positions, enc_out, cross_pos, False
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Cross-entropy (+ MoE aux) over the batch. Returns (loss, metrics).
+
+    batch: tokens (B,S) integer, targets (B,S) integer with -1 = masked;
+    whisper additionally frames (B,T,D); vlm additionally patches.  The
+    log-partition runs over all ``padded_vocab`` columns, as the
+    reference's does; the gold logit is a gather, which equals the
+    reference's one-hot sum for finite logits without a second (B, S, V)
+    float32 tensor."""
+    h, positions, cross_kv, cross_pos, rope = _decoder_inputs(cfg, params, batch)
+    h, aux = forward_hidden(
+        cfg, params, h, positions, cross_kv=cross_kv, cross_pos=cross_pos, rope=rope
+    )
+    h = apply_norm(cfg, params["final_norm"], h)
+    logits = _logits(cfg, params, h)  # (B, S, V) fp32
+
+    targets = batch["targets"]
+    if logits.shape[1] != targets.shape[1]:  # vlm: strip patch positions
+        logits = logits[:, logits.shape[1] - targets.shape[1]:]
+    mask = (targets >= 0).float()
+    safe_targets = targets.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe_targets[..., None])[..., 0]
+    ce = (logz - gold) * mask
+    tokens = mask.sum()
+    loss = ce.sum() / tokens.clamp_min(1.0)
+    total = loss + aux
+    metrics = {"loss": loss, "aux_loss": aux, "tokens": tokens}
+    return total, metrics
 
 
 # ------------------------------------------------------------------ serving

@@ -77,7 +77,9 @@ class PackingService:
         self.intra_layer = bool(intra_layer)
         self.backend = backend
         self.hyper = dse.normalize_hyper(self.algorithm, hyper)
-        self.store = ResultStore(store_dir) if store_dir is not None else None
+        self.store = (
+            ResultStore(store_dir, memory_cache=False) if store_dir is not None else None
+        )
         self.max_queue = int(max_queue)
         self._clock = clock
         self._batcher = MicroBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms)

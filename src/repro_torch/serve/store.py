@@ -84,15 +84,16 @@ def _solution_state(flat: dict[str, np.ndarray]) -> dict:
 class ResultStore:
     """Persistent, digest-verified map ``task key -> PackingResult``.
 
-    Every ``get`` reads from disk: the in-process cache of warm traffic is
-    the service's own (``PackingService``'s memory tier), so the store has
-    none.  (The reference's ``memory_cache`` option, which its service
-    turns off, is not kept.)
+    ``memory_cache=True`` (the default) keeps deserialized results in an
+    in-process dict, so repeat hits after the first disk read are
+    allocation-free.  ``PackingService`` passes ``False``: its own memory
+    tier holds warm traffic, and every store ``get`` then reads the disk.
     """
 
-    def __init__(self, directory: str | Path):
+    def __init__(self, directory: str | Path, memory_cache: bool = True):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
+        self._mem: dict[str, PackingResult] | None = {} if memory_cache else None
         # observability counters (served by PackingService.stats())
         self.hits = 0
         self.misses = 0
@@ -116,6 +117,8 @@ class ResultStore:
         return len(self.digests())
 
     def __contains__(self, key: tuple) -> bool:
+        if self._mem is not None and task_digest(key) in self._mem:
+            return True
         return (self.path_for(key) / "manifest.json").is_file()
 
     # ---------------------------------------------------------------- get
@@ -128,6 +131,11 @@ class ResultStore:
         caller recomputes (whose ``put`` then replaces the damage).
         """
         digest = task_digest(key)
+        if self._mem is not None:
+            res = self._mem.get(digest)
+            if res is not None:
+                self.hits += 1
+                return res
         path = self.dir / f"{_PREFIX}{digest}"
         if not path.exists():
             self.misses += 1
@@ -149,6 +157,8 @@ class ResultStore:
             )
             return None
         self.hits += 1
+        if self._mem is not None:
+            self._mem[digest] = res
         return res
 
     # ---------------------------------------------------------------- put
@@ -160,6 +170,8 @@ class ResultStore:
         result.  Either way the publish is a single atomic rename.
         """
         digest = task_digest(key)
+        if self._mem is not None:
+            self._mem[digest] = res
         state = result_state(res)
         solution = state.pop("solution")
         path = self.dir / f"{_PREFIX}{digest}"

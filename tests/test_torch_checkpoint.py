@@ -223,3 +223,108 @@ def test_write_atomic_dir_replaces_an_existing_entry(tmp_path):
     assert man["n"] == 2
     np.testing.assert_array_equal(got["a"], np.arange(4))
     assert [p.name for p in tmp_path.iterdir()] == ["e"]  # no stray tmp left
+
+
+# ------------------------------------------------ NamedTuple trees (TrainState)
+def _train_state_arrays(seed: int) -> tuple[dict, dict]:
+    """A parameter tree with float32 and bf16 leaves, and its AdamW state
+    (float32 moments, int32 step), as numpy arrays (bf16 as uint16 bits)."""
+    rng = np.random.default_rng(seed)
+    params = {"embed": rng.normal(size=(5, 3)).astype(np.float32),
+              "layers": {"w": rng.normal(size=(2, 3, 3)).astype(np.float32),
+                         "n": rng.normal(size=(2, 3)).astype(np.float32)}}
+    bf16_bits = (rng.integers(0, 2**16, size=(4,)) & 0x7F7F).astype(np.uint16)
+    opt = {"m": {k: v for k, v in params.items()},
+           "v": {k: v for k, v in params.items()},
+           "step": np.asarray(seed, np.int32)}
+    return params, opt, bf16_bits
+
+
+def _ref_train_state(seed: int):
+    from repro.runtime import TrainState as RefTrainState
+
+    params, opt, bits = _train_state_arrays(seed)
+    params = dict(params, h=jnp.asarray(bits.view(jnp.bfloat16)))
+    return RefTrainState(params, opt)
+
+
+def _port_train_state(seed: int):
+    from repro_torch.runtime import TrainState
+
+    params, opt, bits = _train_state_arrays(seed)
+    tree = lambda t: {k: tree(v) if isinstance(v, dict) else torch.from_numpy(np.asarray(v))  # noqa: E731
+                      for k, v in t.items()}
+    params = dict(tree(params), h=torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16))
+    return TrainState(params, tree(opt))
+
+
+TRAIN_STATE_KEYS = [".opt/m/embed", ".opt/m/layers/n", ".opt/m/layers/w", ".opt/step",
+                    ".opt/v/embed", ".opt/v/layers/n", ".opt/v/layers/w",
+                    ".params/embed", ".params/h::bf16", ".params/layers/n",
+                    ".params/layers/w"]
+
+
+def _bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        x = x.numpy()
+    return np.asarray(x).reshape(-1).view(np.uint8)
+
+
+def _assert_bit_equal(got_state, want_state) -> None:
+    got = dict(_flat_items(got_state))
+    want = dict(_flat_items(want_state))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert tuple(got[k].shape) == tuple(want[k].shape), k
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]), err_msg=k)
+
+
+def _flat_items(state, prefix=""):
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        for f in state._fields:
+            yield from _flat_items(getattr(state, f), f"{prefix}.{f}/")
+    elif isinstance(state, dict):
+        for k in sorted(state):
+            yield from _flat_items(state[k], f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), state
+
+
+def test_train_state_keys_are_the_references(tmp_path):
+    """A `TrainState` flattens to JAX's attribute keys, ``.params/...`` and
+    ``.opt/...``, in both packages; plain tuples keep their index keys."""
+    RefCheckpointManager(tmp_path / "ref", async_save=False).save(1, _ref_train_state(1))
+    CheckpointManager(tmp_path / "port", async_save=False).save(1, _port_train_state(1))
+    for d in ("ref", "port"):
+        _, man = read_atomic_dir(tmp_path / d / "step_00000001")
+        assert man["keys"] == TRAIN_STATE_KEYS, d
+    CheckpointManager(tmp_path / "tuple", async_save=False).save(
+        1, (np.ones(2), [np.zeros(1)]))
+    assert read_atomic_dir(tmp_path / "tuple" / "step_00000001")[1]["keys"] == ["0", "1/0"]
+
+
+def test_reference_train_state_restores_in_port(tmp_path):
+    from repro_torch.runtime import TrainState
+
+    want = _ref_train_state(7)
+    RefCheckpointManager(tmp_path, async_save=False).save(7, want, extra={"data": {"step": 7}})
+    step, got, extra = CheckpointManager(tmp_path, async_save=False).restore(
+        _port_train_state(0), device="cpu")
+    assert step == 7 and extra == {"data": {"step": 7}}
+    assert type(got) is TrainState
+    assert got.params["h"].dtype == torch.bfloat16 and got.opt["step"].dtype == torch.int32
+    _assert_bit_equal(got, want)
+
+
+def test_port_train_state_restores_in_reference(tmp_path):
+    from repro.runtime import TrainState as RefTrainState
+
+    want = _port_train_state(9)
+    CheckpointManager(tmp_path, async_save=False).save(9, want, extra={"data": {"step": 9}})
+    like = _ref_train_state(0)
+    step, got, extra = RefCheckpointManager(tmp_path, async_save=False).restore(like)
+    assert step == 9 and extra == {"data": {"step": 9}}
+    assert type(got) is RefTrainState
+    assert got.params["h"].dtype == jnp.bfloat16
+    _assert_bit_equal(got, want)

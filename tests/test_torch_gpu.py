@@ -11,7 +11,10 @@ backend, also after a crash and a resume; the packing service on the card
 (SA-S through K3 / K4) equal to a host-backend service; the data pipeline
 packing on the card as on the host, the LM's smoke configs on the card
 within float32 rounding of the host, and ``decode_demo --packed`` (the
-plan on K1) serving bit-equal to the unpacked tree.
+plan on K1) serving bit-equal to the unpacked tree; one float32 train
+step on the card within 1e-4 of the host (gradients and updated
+parameters, no kernel launched), and a `TrainLoop` checkpoint restored to
+the card bit-equal.
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -745,3 +748,108 @@ def test_decode_demo_packed_on_card():
     assert np.array_equal(packed.tokens, plain.tokens)
     assert torch.equal(packed.logits, plain.logits)
     assert torch.isfinite(plain.logits).all()
+
+
+def _tracked_grads(cfg, params, batch):
+    from repro_torch.runtime import steps
+
+    return steps._grads(cfg, params, batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m", "hymba-1.5b",
+                                  "mamba2-1.3b", "phi-3-vision-4.2b"])
+def test_train_step_on_card_matches_host(arch):
+    """One float32 `make_train_step` on the card against the host on the
+    same weights and batch: the loss, the metrics, every gradient leaf and
+    every updated parameter within 1e-4 (relative max error, the bound of
+    tests/test_torch_train_step.py); K1-K6 never launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.memory.planner import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import TrainState, make_train_step
+
+    _f32_on_card()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = M.init_params(cfg, 0, device="cuda")
+    host = M.tree_map(lambda x: x.cpu(), params)
+    rng = np.random.default_rng(0)
+    n_text = 32 - (cfg.num_patches if cfg.frontend == "vision_stub" else 0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n_text))),
+             "targets": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n_text)))}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.as_tensor(
+            (rng.normal(size=(2, cfg.num_patches, cfg.d_model)) * 0.1).astype(np.float32))
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-9))
+
+    kernels.reset_launch_counts()
+    loss, metrics, grads = _tracked_grads(cfg, params, card_batch)
+    hloss, hmetrics, hgrads = _tracked_grads(cfg, host, batch)
+    assert rel(loss, hloss) < 1e-4 and rel(metrics["aux_loss"], hmetrics["aux_loss"]) < 1e-4
+    for (path, g), (_, h) in zip(leaves_with_paths(grads), leaves_with_paths(hgrads)):
+        assert g.is_cuda and rel(g, h) < 1e-4, path
+    opt = AdamWConfig(learning_rate=3e-4, warmup_steps=10, total_steps=50)
+    step = make_train_step(cfg, opt)
+    new, m = step(TrainState(params, adamw_init(params)), card_batch)
+    hnew, hm = step(TrainState(host, adamw_init(host)), batch)
+    for k in hm:
+        assert rel(m[k], hm[k]) < 1e-4, k
+    for (path, p), (_, h) in zip(leaves_with_paths(new.params), leaves_with_paths(hnew.params)):
+        assert p.is_cuda and rel(p, h) < 1e-4, path
+    assert new.opt["step"].is_cuda and int(new.opt["step"]) == 1
+    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+
+
+@pytest.mark.gpu
+def test_train_loop_checkpoint_restores_to_the_card(tmp_path):
+    """A `TrainLoop` on the card checkpoints under the reference's keys; a
+    second loop's ``resume_or_init`` places every leaf back on the card,
+    bit-equal to the saved state, as a `TrainState`, with the pipeline at
+    the saved batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.memory.planner import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import TrainState, make_train_step
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    data = DataConfig(seq_len=64, global_batch=2, vocab_size=cfg.vocab_size)
+
+    def loop(total):
+        pipe = SyntheticTokenPipeline(data, device="cuda")
+        return TrainLoop(
+            make_train_step(cfg, AdamWConfig()), pipe, CheckpointManager(tmp_path),
+            LoopConfig(total_steps=total, ckpt_every=2),
+            make_batch=lambda b: {k: torch.as_tensor(b[k], device="cuda")
+                                  for k in ("tokens", "targets")}), pipe
+
+    params = M.init_params(cfg, 0, device="cuda")
+    first, pipe = loop(4)
+    final, state, hist = first.run(TrainState(params, adamw_init(params)))
+    assert final == 4 and len(hist) == 4 and all(np.isfinite(hist))
+    keys = first.ckpt.load(4)[1]["keys"]
+    assert ".opt/step" in keys and any(k.startswith(".params/") for k in keys)
+    second, pipe2 = loop(6)
+    fresh = M.init_params(cfg, 1, device="cuda")
+    start, restored = second.resume_or_init(TrainState(fresh, adamw_init(fresh)))
+    assert start == 4 and isinstance(restored, TrainState)
+    assert pipe2.state() == pipe.state()
+    for tree, want in ((restored.params, state.params), (restored.opt["m"], state.opt["m"])):
+        for (path, x), (_, y) in zip(leaves_with_paths(tree), leaves_with_paths(want)):
+            assert x.is_cuda and x.dtype == y.dtype and torch.equal(x, y), path
+    assert restored.opt["step"].is_cuda and int(restored.opt["step"]) == 4
+    final2, _, hist2 = second.run(restored, start)
+    assert final2 == 6 and len(hist2) == 2 and all(np.isfinite(hist2))

@@ -18,16 +18,25 @@ FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_no_jax_and_no_reference():
-    # the card-only test, the service's traffic CLI and the packed-serving
-    # example run where there is no JAX, so they are held to the same rule
+    # the card-only test, the port's CLIs and its examples run where there
+    # is no JAX, so they are held to the same rule
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
         ROOT / "tools" / "serve_traffic_torch.py",
+        ROOT / "tools" / "sweep_resume_torch.py",
         ROOT / "examples" / "serve_packed_torch.py",
+        ROOT / "examples" / "quickstart_torch.py",
+        ROOT / "examples" / "dse_loop_torch.py",
+        ROOT / "examples" / "train_lm_torch.py",
     ]
     assert len(files) > 10
-    for sub in ("data", "models", "configs"):
+    assert all(f.is_file() for f in files)
+    for sub in ("data", "models", "configs", "optim", "runtime"):
         assert (ROOT / "src" / "repro_torch" / sub / "__init__.py") in files
+    for name in ("adamw.py",):
+        assert (ROOT / "src" / "repro_torch" / "optim" / name) in files
+    for name in ("steps.py", "loop.py"):
+        assert (ROOT / "src" / "repro_torch" / "runtime" / name) in files
     for name in ("train.py", "decode_demo.py"):
         assert (ROOT / "src" / "repro_torch" / "launch" / name) in files
     offenders = [
@@ -201,15 +210,48 @@ def test_cpu_lm_serving_loads_neither_jax_nor_reference():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_default_device_is_cuda_and_never_falls_back():
+def test_cpu_lm_training_loads_neither_jax_nor_reference(tmp_path):
+    """The training launcher (loss, autograd, AdamW, the loop and its
+    checkpoints, a resume) and the port's resume CLI import nothing of JAX
+    or the reference."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import train\n"
+        f"args = ['--steps', '2', '--batch', '2', '--seq', '32', '--ckpt-every', '1',\n"
+        f"        '--ckpt-dir', {str(tmp_path / 'ck')!r}, '--device', 'cpu']\n"
+        "assert len(train.main(args)) == 2\n"
+        "assert len(train.main(args[:1] + ['3'] + args[2:] + ['--resume'])) == 1\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import sweep_resume_torch as sr\n"
+        f"assert sr.main(['--dir', {str(tmp_path / 'sw')!r}, '--device', 'cpu',\n"
+        "                '--max-iterations', '40']) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_default_device_is_cuda_and_never_falls_back(tmp_path):
     import numpy as np
 
     import repro_torch.core as c
+    from repro_torch.configs import get_smoke_config
     from repro_torch.convert import params_from_arrays
+    from repro_torch.launch import train
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw_init
     from repro_torch.device import resolve_backend, resolve_device
     from repro_torch.memory import plan_packing
 
     prob = c.get_problem("CNV-W1A1")
+    cfg = get_smoke_config("qwen3-0.6b")
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
@@ -222,6 +264,8 @@ def test_default_device_is_cuda_and_never_falls_back():
             lambda: resolve_device("cuda:0"),
             lambda: plan_packing({"a": torch.zeros(1, 3), "b": torch.zeros(2)}),
             lambda: params_from_arrays({"a": np.zeros(3)}),
+            lambda: adamw_init(TM.init_params(cfg)),
+            lambda: train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)]),
         ):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()

@@ -16,6 +16,7 @@ served warm by the other (for the task keys both packages share: backend
 import asyncio
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -79,7 +80,7 @@ def _files(entry):
 
 
 def test_round_trip_bit_identical(tmp_path):
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     res = _solve()
     assert result_signature(res) == ref_serve.result_signature(_ref_solve())
     assert store.put(_key(), res)
@@ -95,8 +96,8 @@ def test_round_trip_bit_identical(tmp_path):
 def test_fresh_store_over_same_dir_serves_warm(tmp_path):
     """The killed-server model: writer process gone, a brand-new store over
     the same dir serves its results from disk."""
-    ResultStore(tmp_path).put(_key(), _solve())
-    reborn = ResultStore(tmp_path)
+    ResultStore(tmp_path, memory_cache=False).put(_key(), _solve())
+    reborn = ResultStore(tmp_path, memory_cache=False)
     got = reborn.get(_key(), PROB)
     assert result_signature(got) == result_signature(_solve())
     assert reborn.hits == 1 and reborn.corrupt_skipped == 0
@@ -106,7 +107,7 @@ def test_fresh_store_over_same_dir_serves_warm(tmp_path):
     "corruptor", [tear_arrays, corrupt_arrays, corrupt_manifest, half_delete]
 )
 def test_damaged_entry_skipped_then_repaired(tmp_path, corruptor, caplog):
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     res = _solve()
     store.put(_key(), res)
     corruptor(store.path_for(_key()))
@@ -119,13 +120,13 @@ def test_damaged_entry_skipped_then_repaired(tmp_path, corruptor, caplog):
 
     # the recompute path: put() swaps the damaged entry for a fresh one
     assert store.put(_key(), res)
-    store2 = ResultStore(tmp_path)
+    store2 = ResultStore(tmp_path, memory_cache=False)
     assert result_signature(store2.get(_key(), PROB)) == result_signature(res)
 
 
 def test_wrong_key_digest_never_served(tmp_path):
     """An entry renamed over another task's slot fails the digest check."""
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     store.put(_key(0), _solve(0))
     path0 = store.path_for(_key(0))
     path1 = store.path_for(_key(1))
@@ -137,8 +138,8 @@ def test_wrong_key_digest_never_served(tmp_path):
 def test_concurrent_second_writer_never_corrupts(tmp_path):
     """Atomic-rename contract: a losing writer leaves the winner untouched
     (same bytes before and after) and reports the lost race."""
-    store_a = ResultStore(tmp_path)
-    store_b = ResultStore(tmp_path)
+    store_a = ResultStore(tmp_path, memory_cache=False)
+    store_b = ResultStore(tmp_path, memory_cache=False)
     res = _solve()
     assert store_a.put(_key(), res)
     entry = store_a.path_for(_key())
@@ -156,7 +157,7 @@ def test_concurrent_second_writer_never_corrupts(tmp_path):
 def test_torn_tmp_dir_is_invisible(tmp_path):
     """A crash mid-write leaves only a scratch dir: not an entry, not
     counted, not served."""
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     junk = tmp_path / "entry_deadbeef.tmp-999-aa"
     junk.mkdir()
     (junk / "arrays.npz").write_bytes(b"partial")
@@ -167,7 +168,7 @@ def test_torn_tmp_dir_is_invisible(tmp_path):
 def test_manifest_is_valid_json_with_sha(tmp_path):
     """Entry layout contract: manifest carries format, task digest, and the
     sha256 the corruptors/readers verify against."""
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     store.put(_key(), _solve())
     manifest = json.loads(
         (store.path_for(_key()) / "manifest.json").read_text()
@@ -185,7 +186,7 @@ def test_entry_written_by_reference_is_served_by_port(tmp_path, backend):
     ref_store = ref_serve.ResultStore(tmp_path, memory_cache=False)
     want = _ref_solve(3, backend)
     assert ref_store.put(_ref_key(3, backend), want)
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     assert store.path_for(_key(3, backend)) == ref_store.path_for(_ref_key(3, backend))
     got = store.get(_key(3, backend), PROB)
     assert store.hits == 1 and store.corrupt_skipped == 0
@@ -200,7 +201,7 @@ def test_entry_written_by_reference_is_served_by_port(tmp_path, backend):
 
 @pytest.mark.parametrize("backend", ["python", "auto"])
 def test_entry_written_by_port_is_served_by_reference(tmp_path, backend):
-    store = ResultStore(tmp_path)
+    store = ResultStore(tmp_path, memory_cache=False)
     res = _solve(4, backend)
     assert store.put(_key(4, backend), res)
     ref_store = ref_serve.ResultStore(tmp_path, memory_cache=False)
@@ -297,3 +298,63 @@ def test_write_atomic_dir_returns_true_when_it_publishes(tmp_path):
         assert read_atomic_dir(final)[1]["tag"] == 5
         assert fn(final, *_entry(6), replace=False) is False
         assert read_atomic_dir(final)[1]["tag"] == 5
+
+
+# ------------------------------------------------------- memory_cache=True
+def _cache_sequence(make_store, key, solve, prob, root):
+    """One sequence of puts, gets and damage over a cached store, with the
+    counters and membership read after every call."""
+    seen = []
+
+    def note(store, out):
+        seen.append((out, store.hits, store.misses, store.corrupt_skipped,
+                     store.lost_races))
+
+    store = make_store(root)
+    note(store, store.get(key(0), prob) is None)  # cold miss
+    note(store, store.put(key(0), solve(0)))
+    note(store, store.put(key(0), solve(0)))  # intact entry: lost race
+    note(store, store.get(key(0), prob) is not None)  # memory hit
+    note(store, key(1) in store)
+    note(store, store.put(key(1), solve(1)))
+    tear_arrays(store.path_for(key(1)))
+    note(store, store.get(key(1), prob) is not None)  # memory, not disk
+    note(store, key(1) in store)
+    reborn = make_store(root)
+    note(reborn, reborn.get(key(1), prob) is None)  # damaged on disk
+    note(reborn, reborn.get(key(0), prob) is not None)  # disk hit, cached
+    shutil.rmtree(reborn.path_for(key(0)))
+    note(reborn, reborn.get(key(0), prob) is not None)  # memory hit
+    note(reborn, key(0) in reborn)
+    return seen
+
+
+def test_memory_cache_counters_equal_the_reference(tmp_path):
+    """``ResultStore(d)`` caches deserialized results in-process by
+    default, as the reference's does: the same sequence of puts, gets and
+    damage gives the same hits, misses, ``corrupt_skipped`` and
+    ``lost_races`` after every call."""
+    port_seen = _cache_sequence(ResultStore, _key, _solve, PROB, tmp_path / "port")
+    ref_seen = _cache_sequence(ref_serve.ResultStore, _ref_key, _ref_solve,
+                               REF_PROB, tmp_path / "reference")
+    assert port_seen == ref_seen
+    assert port_seen[2] == (False, 0, 1, 0, 1)  # the lost race
+    assert port_seen[-1] == (True, 2, 1, 1, 0)  # the reborn store's own
+
+
+@pytest.mark.parametrize("memory_cache", [True, False])
+def test_memory_cache_keyword_takes_the_reference_meaning(tmp_path, memory_cache):
+    """``memory_cache=False`` reads the disk on every get (a damaged entry
+    is never served, even right after its put); ``True`` serves the
+    result it holds.  The reference's store gives the same answers."""
+    got = {}
+    for name, make, key, solve, prob in (
+            ("port", ResultStore, _key, _solve, PROB),
+            ("reference", ref_serve.ResultStore, _ref_key, _ref_solve, REF_PROB)):
+        store = make(tmp_path / name, memory_cache=memory_cache)
+        assert store.put(key(), solve())
+        corrupt_arrays(store.path_for(key()))
+        res = store.get(key(), prob)
+        got[name] = (res is not None, store.hits, store.corrupt_skipped)
+    assert got["port"] == got["reference"] == (
+        (True, 1, 0) if memory_cache else (False, 0, 1))
