@@ -133,6 +133,23 @@ no result line):
    at the same batch) and resumed to the end; ``tools/sweep_resume_torch.py
    --backend cuda`` (K3) SIGKILLed after snapshot 2 and resumed, its
    record equal to the uninterrupted cuda run's and the python run's;
+6g. the engines' ``legacy`` baselines and the production-mesh dry run:
+   GA-NFD (10 generations) and single-chain SA-S (1000 steps) on
+   RN152-W1A2 through ``legacy``, ``cuda`` and ``python``, one record for
+   all three, K1-K6 launched by neither legacy run, us a generation / step
+   of each; ``tools/portfolio_gate_torch.py --budget 1.5 --backend cuda``
+   (the fleet / thread-pool iterations/s ratio, a measurement; the racing
+   smoke bit-equal twice); ``python -m repro_torch.launch.dryrun`` on
+   qwen3-0.6b decode_32k, qwen3-14b train_4k, mamba2-1.3b long_500k and
+   granite-moe-1b-a400m prefill_32k at full size on the fake 16 x 16 mesh,
+   one child process each, started first and tracing on the host's cores
+   while the parent runs the rest of the phase, each ``ok`` (roofline
+   terms, seconds); the card's own reading on ``make_host_mesh()``:
+   qwen3-0.6b's train step at 8 x 512 and a decode step at batch 8 x 32768
+   (cut from 128), each traced under ``FakeTensorMode`` and run for real on
+   the card under the same counter: per-device FLOPs and argument bytes
+   equal exactly, predicted peak memory beside ``max_memory_allocated``,
+   the measured step beside its roofline bound;
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -3248,6 +3265,287 @@ def train_path(device) -> dict:
     return dict(launches=launches, summary=summary)
 
 
+# ---------------------------------------------------------------- phase 6g
+# The engines' `legacy` baselines: the seed's from-scratch scalar
+# evaluation (GA costs from cost_full(), SA on the scalar loop), at
+# RN152-W1A2's published widths with its Table-2 hyperparameters; legacy,
+# cuda and python must give one record, the legacy runs launching nothing
+BASELINE_RUNS = (
+    ("ga-nfd", dict(max_generations=10), "binpack_fitness_cuda"),
+    ("sa-s", dict(n_chains=1, max_iterations=1000), "sa_step_deltas_cuda"),
+)
+BASELINE_BACKENDS = ("legacy", "cuda", "python")
+# the thread-pool portfolio against the fleet: tools/portfolio_gate_torch.py
+# (the ratio is a measurement here, not a gate: --threshold 0)
+GATE_ARGS = ("--budget", "1.5", "--backend", "cuda", "--threshold", "0")
+# the production-mesh dry run: full configurations on the fake 16 x 16
+# mesh, one child process each, all started together
+DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k"), ("qwen3-14b", "train_4k"),
+                ("mamba2-1.3b", "long_500k"), ("granite-moe-1b-a400m", "prefill_32k"))
+# the card's own reading on make_host_mesh(): qwen3-0.6b at published
+# widths, a train step at phase 6f's shape and a decode step cut to what
+# one card holds (batch 128 -> 8: the full cell's 240 GB KV cache is 3.8 GB)
+HOST_READINGS = (("train", dict(seq_len=512, global_batch=8)),
+                 ("decode", dict(seq_len=32768, global_batch=8)))
+
+
+def baselines_path(device) -> dict:
+    """GA-NFD (10 generations) and single-chain SA-S (1000 steps) on
+    RN152-W1A2 through ``legacy``, ``cuda`` and ``python``: one record
+    (cost, bins, kind lanes, iterations, trace costs) for all three; launch
+    counts reset just before each run and read just after (legacy and
+    python launch nothing, cuda its own kernel).  Then the thread-pool
+    portfolio against the fleet (`tools/portfolio_gate_torch.py`, its
+    launches read apart from the path's)."""
+    import importlib.util
+
+    import repro_torch.core as rc
+    from repro_torch import kernels
+
+    hp = rc.hyperparams(PROBLEM)
+    launches = {name: 0 for name in KERNELS}
+    runs = {}
+    for alg, kw, own in BASELINE_RUNS:
+        recs = {}
+        for backend in BASELINE_BACKENDS:
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            r = rc.pack(rc.get_problem(PROBLEM), alg, seed=0, max_seconds=1e9,
+                        backend=backend, device=device, **dict(hp, **kw))
+            wall = time.perf_counter() - t
+            n = kernels.launch_counts()
+            r.solution.validate()
+            if r.solution.cost() != r.solution.cost_full() or r.cost != r.solution.cost():
+                raise AssertionError(f"{alg} {backend}: cost bookkeeping disagrees")
+            if backend == "cuda":
+                if n[own] <= 0 or any(v for k, v in n.items() if k != own):
+                    raise AssertionError(f"{alg} cuda: launches {n}, expected {own} only")
+                for k, v in n.items():
+                    launches[k] += v
+            elif any(n.values()):
+                raise AssertionError(f"{alg} {backend}: launched {n}, expected nothing")
+            recs[backend] = (result_key(r), r.iterations, wall, r.params["backend"])
+        want = recs["legacy"][0]
+        for backend, (key, its, wall, used) in recs.items():
+            if key != want:
+                raise AssertionError(f"{alg} {PROBLEM}: {backend} differs from legacy")
+        its = recs["legacy"][1]
+        unit = "generation" if alg.startswith("ga") else "step"
+        us = {b: 1e6 * recs[b][2] / max(its, 1) for b in BASELINE_BACKENDS}
+        runs[alg] = dict(iterations=its, cost=want[0], us_per=us,
+                         engine={b: recs[b][3] for b in BASELINE_BACKENDS})
+        print(f"[baselines] {alg} {PROBLEM} {kw}: cost={want[0]} iterations={its}, legacy == "
+              f"cuda == python bit for bit; us per {unit} (whole pack(), set-up included): "
+              + ", ".join(f"{b} {us[b]:.1f}" for b in BASELINE_BACKENDS))
+
+    spec = importlib.util.spec_from_file_location(
+        "portfolio_gate_torch", ROOT / "tools" / "portfolio_gate_torch.py")
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    g = gate.run_gate(gate.parse_args(list(GATE_ARGS)))
+    gate_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    race = g["race"]
+    if not race["ok"]:
+        raise AssertionError("portfolio gate: the racing smoke's two runs differ "
+                             "or overdraw the ledger")
+    if g["fleet"].cost >= g["singleton"]:
+        raise AssertionError("portfolio gate: the fleet did not beat the singleton")
+    threads = dict(
+        ratio=g["ratio"], tput_fleet=g["tput_fleet"], tput_threads=g["tput_threads"],
+        rounds=g["threads"].params["rounds"], cost_fleet=g["fleet"].cost,
+        cost_threads=g["threads"].cost, race_cost=race["first"][0],
+        race_spent=race["first"][3], seconds=time.perf_counter() - t,
+        launches=gate_launches,
+    )
+    print(f"[baselines] portfolio gate (CNV-W1A1 mixed x4 @1.5 s, cuda): fleet "
+          f"{g['tput_fleet']:.0f} / threads {g['tput_threads']:.0f} iterations/s = "
+          f"{g['ratio']:.3f}x (a measurement); costs fleet {g['fleet'].cost}, threads "
+          f"{g['threads'].cost}; racing smoke bit-equal twice (cost {race['first'][0]}, "
+          f"spent {race['first'][3]}); launches {json.dumps(gate_launches)}")
+    return dict(launches=launches, runs=runs, threads=threads)
+
+
+def start_dryrun_cells() -> tuple:
+    """Start the fake 16 x 16 cells, each in a child process of its own
+    (``python -m repro_torch.launch.dryrun``: a process has one default
+    process group), all together; they trace on the host's cores while the
+    parent runs the phase's card work."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--single-pod", "--force", "--quiet"]
+        # stderr to a file, so a child never waits on a full pipe
+        err = tempfile.TemporaryFile(mode="w+")
+        procs.append((subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                       stdout=subprocess.DEVNULL, stderr=err), err))
+    return procs, time.perf_counter()
+
+
+def finish_dryrun_cells(started) -> dict:
+    """Wait for `start_dryrun_cells`' children; each cell must be ``ok``."""
+    from repro_torch.launch import dryrun
+
+    procs, t = started
+    cells = {}
+    for (arch, shape), (p, err_file) in zip(DRYRUN_CELLS, procs):
+        p.wait(timeout=600)
+        err_file.seek(0)
+        err = err_file.read()
+        err_file.close()
+        r = json.loads(dryrun.cell_path(arch, shape, False).read_text())
+        if p.returncode != 0 or r.get("status") != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: exit {p.returncode}, "
+                                 f"{r.get('op')} {r.get('placements')} {r.get('error')} "
+                                 f"{err[-1500:]}")
+        t_ = r["roofline"]
+        cells[f"{arch}/{shape}"] = dict(
+            trace_s=r["trace_s"], wall_s=r["wall_s"], roofline=t_,
+            flops_per_device=r["flops_per_device"], memory=r["memory"],
+            collectives=r["collectives_by_op"], useful_flops_ratio=r["useful_flops_ratio"])
+        print(f"[dryrun] {arch} {shape} on the fake 16x16 mesh: ok, traced in "
+              f"{r['trace_s']:.1f} s ({r['wall_s']:.1f} s with set-up); per device "
+              f"{r['flops_per_device']:.4e} FLOPs, compute {t_['compute_s']:.4e} s, memory "
+              f"{t_['memory_s']:.4e} s, collectives {t_['collective_s']:.4e} s -> "
+              f"{t_['dominant']} bound {t_['bound_s']:.4e} s; arguments "
+              f"{r['memory']['argument_bytes'] / 2**30:.3f} GiB, temporaries "
+              f"{r['memory']['temp_bytes'] / 2**30:.3f} GiB; useful FLOPs "
+              f"{r['useful_flops_ratio']:.3f}")
+    return dict(cells=cells, seconds=time.perf_counter() - t)
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under a tree of (D)Tensors."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.dryrun import _flat
+
+    seen, total = set(), 0
+    for t in _flat(tree):
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        if hasattr(t, "untyped_storage"):
+            s = t.untyped_storage()
+            if s.data_ptr() not in seen:
+                seen.add(s.data_ptr())
+                total += s.nbytes()
+    return total
+
+
+def host_reading(device) -> dict:
+    """The card's own reading of the cost model on ``make_host_mesh()``:
+    each step traced under ``FakeTensorMode`` and then run for real on the
+    card (seeded values) under the same counter.  FLOPs and argument bytes
+    must be equal exactly; predicted peak memory (arguments + the trace's
+    peak temporaries) is printed beside ``torch.cuda.max_memory_allocated``
+    and the measured step time beside the roofline bound."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models.config import SHAPES
+
+    mesh = make_host_mesh(device)
+    cfg = get_config(TRAIN_ARCH)
+    out = {}
+    reset_launch_counts()
+    for kind, cut in HOST_READINGS:
+        shape = dataclasses.replace(SHAPES[f"{kind}_4k" if kind == "train" else f"{kind}_32k"],
+                                    **cut)
+        t0 = time.perf_counter()
+        fake, fmem = dryrun.trace_step(cfg, shape, mesh, device)
+        trace_s = time.perf_counter() - t0
+        meta = dict(n_devices=1, memory=fmem)
+        est = dryrun.analyze(fake, meta, cfg=cfg, shape=shape)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step, args = dryrun.build_inputs(dryrun.serving_config(cfg, shape), shape, mesh,
+                                         device, fake=False, seed=0)
+        arg_real = _storage_bytes(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        real = OpCounter()
+        times = []
+        for i in range(2):
+            counter = real if i == 0 else OpCounter()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with implicit_replication(), counter:
+                res = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+                leaves = [x for x in dryrun._flat(res) if isinstance(x, torch.Tensor)]
+                finite = all(bool(torch.isfinite(x.full_tensor() if hasattr(x, "full_tensor")
+                                                 else x).all()) for x in leaves
+                             if x.is_floating_point() and x.numel() < 2**24)
+            del res
+            if kind == "decode":
+                break  # a decode step writes the cache in place: one reading
+        if real.cost.flops != fake.cost.flops:
+            raise AssertionError(f"host reading {kind}: fake trace {fake.cost.flops} FLOPs, "
+                                 f"the real step {real.cost.flops}")
+        if real.cost.dot_flops != fake.cost.dot_flops:
+            raise AssertionError(f"host reading {kind}: GEMM FLOPs differ")
+        if arg_real != fmem["argument_bytes"]:
+            raise AssertionError(f"host reading {kind}: predicted argument bytes "
+                                 f"{fmem['argument_bytes']}, the real inputs' {arg_real}")
+        if not finite:
+            raise AssertionError(f"host reading {kind}: non-finite outputs")
+        t_ = est["roofline"]
+        step_s = times[-1]  # a train step's second run: the first warms up
+        out[kind] = dict(
+            shape=dict(batch=shape.global_batch, seq=shape.seq_len), flops=real.cost.flops,
+            argument_bytes=arg_real, predicted_peak_bytes=fmem["argument_bytes"] + fmem["temp_bytes"],
+            measured_peak_bytes=peak, step_s=step_s, steps_s=times, roofline=t_,
+            trace_s=trace_s, local_ops=real.n_ops,
+        )
+        print(f"[dryrun] host mesh (1, 1) {TRAIN_ARCH} {kind} batch {shape.global_batch} x "
+              f"{shape.seq_len}: FLOPs fake {fake.cost.flops:.6e} == real {real.cost.flops:.6e} "
+              f"({real.n_ops} local operations); argument bytes {arg_real} == predicted; peak "
+              f"memory predicted {out[kind]['predicted_peak_bytes'] / 2**30:.3f} GiB, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB; step {1e3 * step_s:.1f} ms "
+              f"(DTensor, synchronised; runs {[round(1e3 * x, 1) for x in times]}) vs "
+              f"roofline {1e3 * t_['bound_s']:.3f} ms ({t_['dominant']}: compute "
+              f"{1e3 * t_['compute_s']:.3f}, memory {1e3 * t_['memory_s']:.3f} ms); "
+              f"traced in {trace_s:.1f} s")
+        del args
+        torch.cuda.empty_cache()
+    n = launch_counts()
+    if any(n.values()):
+        raise AssertionError(f"the dry run launched {n}")
+    return dict(readings=out, launches={name: 0 for name in KERNELS})
+
+
+def baselines_and_dryrun(device) -> tuple[dict, dict]:
+    """Phase 6g: the fake production-mesh cells start first, in child
+    processes, and trace while the parent runs the baselines and the
+    card's own reading; then their records are read."""
+    t = time.perf_counter()
+    started = start_dryrun_cells()
+    baselines = baselines_path(device)
+    host = host_reading(device)
+    cells = finish_dryrun_cells(started)
+    seconds = time.perf_counter() - t
+    print(f"[dryrun] {len(cells['cells'])} fake cells done {cells['seconds']:.1f} s after "
+          f"their start; phase 6g took {seconds:.1f}s")
+    return baselines, dict(cells=cells, host=host, launches=host["launches"],
+                           seconds=seconds)
+
+
 # ----------------------------------------------------------------- phase 7
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
@@ -4240,6 +4538,7 @@ def main() -> int:
     for name, e in lm["errs"].items():
         errs[name] = max(errs[name], e)
     trained = train_path(device)
+    baselines, dry = baselines_and_dryrun(device)
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
     dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
@@ -4255,7 +4554,8 @@ def main() -> int:
                    "memory": memory["launches"][name], "dse": dse["launches"][name],
                    "resume": resumed["launches"][name], "serve": serve["launches"][name],
                    "sharded": shard["launches"][name], "lm": lm["launches"][name],
-                   "training": trained["launches"][name]}
+                   "training": trained["launches"][name],
+                   "baselines": baselines["launches"][name], "dryrun": dry["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -4297,6 +4597,8 @@ def main() -> int:
     print(f"[shard] {json.dumps({k: shard[k] for k in ('mesh', 'seconds', 'runs', 'ragged')})}")
     print(f"[lm] {json.dumps(lm['summary'])}")
     print(f"[train] {json.dumps(trained['summary'])}")
+    print(f"[baselines] {json.dumps({k: baselines[k] for k in ('runs', 'threads')})}")
+    print(f"[dryrun] {json.dumps({'cells': dry['cells'], 'host': dry['host']['readings']})}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -30,6 +30,7 @@ from .portfolio import (  # noqa: F401
     IslandSpec,
     TruncationWarning,
     pack_portfolio,
+    pack_portfolio_threads,
 )
 from .problem import (  # noqa: F401
     BRAM18,

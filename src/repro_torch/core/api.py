@@ -54,8 +54,10 @@ def make_packer(
       (a bin never mixes buffers from different layers).
     * ``backend`` — evaluation engine: ``auto`` (``cuda`` on a CUDA device,
       ``torch`` on the CPU), ``python`` (host numpy), ``torch`` (the plain
-      PyTorch versions), ``cuda`` (the hand-written kernels); see
-      `repro_torch.device`.
+      PyTorch versions), ``cuda`` (the hand-written kernels), ``legacy``
+      (the seed's from-scratch scalar loop, kept for benchmarking; it
+      launches nothing); see `repro_torch.device`.  All backends are
+      bit-identical per seed.
     * ``device`` — where the kernels run; ``None`` means ``"cuda"`` and
       raises where CUDA is not available.
     * ``hyper`` — Table-2 names (``n_pop``, ``n_tour``, ``p_mut``,
@@ -140,7 +142,8 @@ def pack(
     For the GA the batched backends (``torch``/``cuda``) evaluate each
     generation's fitness in one call; for "sa-s" the backend computes the
     per-step delta costs (pass ``n_chains=K`` for K temperature-laddered
-    chains; "sa-nfd" always runs the scalar loop).  Results are
+    chains; "sa-nfd" and ``backend="legacy"`` run the scalar loop, the
+    seed's, kept for benchmarking).  Results are
     bit-identical to ``repro.core.pack`` for the same seed and budget.
 
     ``device`` defaults to ``"cuda"`` for every algorithm and raises where

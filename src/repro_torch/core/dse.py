@@ -26,8 +26,9 @@ the problem axis.  :func:`pack_sweep` closes that gap:
   leading-problem-axis ``binpack_fitness`` call over the stacked
   ``(P, n_pop, NB)`` matrices (K1 / K2 on ``cuda``).  Again bit-identical
   per problem to standalone runs.
-* Everything else (``sa-nfd``, single-chain SA, the GA on ``python``, the
-  one-shot heuristics, ``portfolio``) runs a serial per-problem loop
+* Everything else (``sa-nfd``, single-chain SA, the ``legacy`` backend,
+  the GA on ``python``, the one-shot heuristics, ``portfolio``) runs a
+  serial per-problem loop
   through :func:`api.pack` — same results, no batching.
 
 Every result equals the reference's ``repro.core.pack_sweep`` for the same
@@ -501,7 +502,11 @@ def _solve_positions(
         resolved = packer._resolve_backend()
     else:
         packer = resolved = None
-    if algorithm in _SA_BATCHED and packer.n_chains > 1:
+    if (
+        algorithm in _SA_BATCHED
+        and resolved != "legacy"
+        and packer.n_chains > 1
+    ):
         groups = _group_by_cost_model(todo, problems)
         solved = _solve_sa_groups(
             packer, groups, problems, seeds, resolved, keys=keys, ck=ck,
@@ -514,7 +519,7 @@ def _solve_positions(
             n_shards=n_shards, mesh=mesh,
         )
     else:
-        # serial lane: scalar engines, the GA on python, heuristics,
+        # serial lane: scalar engines, the GA on python / legacy, heuristics,
         # portfolio (``n_shards`` / ``mesh`` do not apply).  Checkpoint
         # granularity here is whole candidates: each finished solve is
         # durable, an in-flight one restarts from scratch.

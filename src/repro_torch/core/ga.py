@@ -22,6 +22,8 @@ fitness call goes through the port's kernels.  Evaluation backends
   `kernels.binpack_fitness.ops.population_costs` call on ``device`` (the
   plain PyTorch version, or the CUDA kernels K1 / K2).
 * ``"auto"`` — ``cuda`` on a CUDA device, ``torch`` on the CPU.
+* ``"legacy"`` — the seed's from-scratch scalar evaluation (no caches), kept
+  as the benchmark baseline; identical RNG stream and results.
 
 All backends are bit-identical for a fixed seed: cost arithmetic is exact
 integer math and the RNG consumption order never depends on the backend.
@@ -273,6 +275,9 @@ class GeneticPacker:
         self.__dict__.update(locals())
         del self.__dict__["self"]
         self.device = resolve_device(device)
+        # warm state for the thread-pool portfolio's restarts (set after
+        # each pack())
+        self.last_population_: list[Solution] | None = None
 
     @property
     def name(self) -> str:
@@ -285,6 +290,7 @@ class GeneticPacker:
         self,
         sol: Solution,
         rng: np.random.Generator,
+        use_cache: bool = True,
         hetero: bool = False,
     ) -> Solution:
         # heterogeneous OCM: a fraction of mutations reassign RAM kinds
@@ -302,6 +308,7 @@ class GeneticPacker:
                 intra_layer=self.intra_layer,
                 extra_frac=self.nfd_extra_frac,
                 max_bins=self.nfd_max_bins,
+                use_cache=use_cache,
             )
         return buffer_swap(
             sol, rng, n_moves=self.swap_moves, intra_layer=self.intra_layer
@@ -315,6 +322,14 @@ class GeneticPacker:
         return _population_totals(
             run.W, run.H, run.Km, run, run.backend, self.device, mesh=mesh
         )
+
+    def _fitness_legacy(self, sol: Solution, cost: float, hetero: bool) -> float:
+        f = float(cost)
+        if self.layer_weight > 0.0:
+            f += self.layer_weight * sol.distinct_layers_per_bin_full()
+        if hetero and self.inventory_penalty > 0.0:
+            f += self.inventory_penalty * sol.inventory_overflow()
+        return f
 
     # ---------------------------------------------------------------- pack
     #
@@ -338,6 +353,7 @@ class GeneticPacker:
         run.t0 = time.perf_counter()
         run.backend = backend
         run.batched = backend in ("torch", "cuda")
+        run.use_cache = backend != "legacy"
         run.hetero = prob.n_kinds > 1
         run.inv_pen = self.inventory_penalty if run.hetero else 0.0
         run.modes0 = prob.kind_tables[0][1]  # == BRAM18_MODES on defaults
@@ -387,22 +403,30 @@ class GeneticPacker:
         backends, cached scalar costs on ``python``).  ``totals`` carries
         the batched costs when the caller computed them already (the DSE's
         lockstep lane evaluates every problem's population in one stacked
-        call); otherwise the batched backends make their own call."""
+        call); otherwise the batched backends make their own call.
+        ``legacy`` recomputes every cost from scratch (`cost_full`)."""
         if run.batched:
             costs = (
                 self._batched_costs(run) if totals is None
                 else np.asarray(totals, dtype=np.float64)
             )
-        else:
+        elif run.use_cache:
             costs = np.asarray([s.cost() for s in run.pop], dtype=np.float64)
-        fits = np.asarray(
-            [
-                fitness(s, self.layer_weight, cost=c,
-                        inventory_penalty=run.inv_pen,
-                        overflow=None if run.ovfs is None else run.ovfs[i])
-                for i, (s, c) in enumerate(zip(run.pop, costs))
-            ]
-        )
+        else:
+            costs = np.asarray([s.cost_full() for s in run.pop], dtype=np.float64)
+        if run.use_cache:
+            fits = np.asarray(
+                [
+                    fitness(s, self.layer_weight, cost=c,
+                            inventory_penalty=run.inv_pen,
+                            overflow=None if run.ovfs is None else run.ovfs[i])
+                    for i, (s, c) in enumerate(zip(run.pop, costs))
+                ]
+            )
+        else:
+            fits = np.asarray(
+                [self._fitness_legacy(s, c, run.hetero) for s, c in zip(run.pop, costs)]
+            )
         run.costs = costs
         run.fits = fits
         sel = costs if run.ovfs is None else costs + run.inv_pen * run.ovfs
@@ -425,7 +449,10 @@ class GeneticPacker:
         mutated: list[int] = []
         for i in range(self.n_pop):
             if run.rng.random() < self.p_mut:
-                run.pop[i] = self._mutate(run.pop[i], run.rng, hetero=run.hetero)
+                run.pop[i] = self._mutate(
+                    run.pop[i], run.rng, use_cache=run.use_cache,
+                    hetero=run.hetero,
+                )
                 if run.ovfs is not None:
                     run.ovfs[i] = run.pop[i].inventory_overflow()
                 if run.batched:
@@ -433,12 +460,17 @@ class GeneticPacker:
                     if run.Km is not None:
                         run.pop[i].fill_kinds(run.Km[i])
                     mutated.append(i)
-                else:
+                elif run.use_cache:
                     run.costs[i] = run.pop[i].cost()
                     run.fits[i] = fitness(
                         run.pop[i], self.layer_weight, cost=run.costs[i],
                         inventory_penalty=run.inv_pen,
                         overflow=None if run.ovfs is None else run.ovfs[i],
+                    )
+                else:
+                    run.costs[i] = run.pop[i].cost_full()
+                    run.fits[i] = self._fitness_legacy(
+                        run.pop[i], run.costs[i], run.hetero
                     )
         return mutated
 
@@ -488,6 +520,7 @@ class GeneticPacker:
     def _finish_run(self, run: "_GARun") -> PackingResult:
         wall = time.perf_counter() - run.t0
         run.trace.append((wall, run.best_sel if run.hetero else run.best_cost))
+        self.last_population_ = run.pop
         extra = (
             dict(p_kind=self.p_kind, inventory_penalty=self.inventory_penalty,
                  overflow=run.best.inventory_overflow())
@@ -740,7 +773,7 @@ class _GARun:
     CODEC_SCALARS = ("best_cost", "best_sel", "gen", "stale", "done")
 
     __slots__ = (
-        "prob", "rng", "t0", "backend", "batched", "hetero",
+        "prob", "rng", "t0", "backend", "batched", "use_cache", "hetero",
         "inv_pen", "modes0", "kt", "pop", "costs", "fits", "ovfs",
         "W", "H", "Km", "best", "best_cost", "best_sel", "trace",
         "stale", "gen", "done",

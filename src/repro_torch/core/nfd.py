@@ -74,10 +74,11 @@ def select_repack_bins(
     threshold: float,
     max_bins: int,
     extra_frac: float,
+    use_cache: bool = True,
 ) -> np.ndarray:
     """Boolean mask of bins to decompose: worst-efficiency first (below the
     threshold), capped at ``max_bins``, plus a random exploration subset."""
-    eff = sol.bin_efficiencies()
+    eff = sol.bin_efficiencies() if use_cache else sol.bin_efficiencies_full()
     n = len(eff)
     mask = np.zeros(n, dtype=bool)
     below = np.flatnonzero(eff < threshold)
@@ -101,14 +102,19 @@ def nfd_repack(
     intra_layer: bool = False,
     extra_frac: float = 0.0,
     max_bins: int = 12,
+    use_cache: bool = True,
 ) -> Solution:
     """Algorithm 1 as a local mutation: decompose selected bins and repack.
 
     Kept bins carry their cached records into the child solution, so the
-    child's ``cost()`` only evaluates the freshly repacked bins.
+    child's ``cost()`` only evaluates the freshly repacked bins.  Passing
+    ``use_cache=False`` reproduces the seed's from-scratch evaluation
+    behaviour (same RNG stream, same result) for benchmarking.
     """
     prob = sol.problem
-    mask = select_repack_bins(sol, rng, threshold, max_bins, extra_frac)
+    mask = select_repack_bins(
+        sol, rng, threshold, max_bins, extra_frac, use_cache=use_cache
+    )
     keep = [b for b, m in zip(sol.bins, mask) if not m]
     pool = np.asarray(
         [i for b, m in zip(sol.bins, mask) if m for i in b], dtype=np.int64
@@ -124,7 +130,14 @@ def nfd_repack(
     )
     # kept bins carry their RAM kinds into the child; freshly repacked bins
     # start on kind 0 (the finest-grained primitive) — the engines' kind
-    # moves and inventory penalty re-balance them.
+    # moves and inventory penalty re-balance them
+    if not use_cache:
+        if prob.n_kinds == 1:
+            return Solution(prob, keep + new_bins)
+        kept_kinds = [int(k) for k, m in zip(sol.kinds, mask) if not m]
+        return Solution(
+            prob, keep + new_bins, kinds=kept_kinds + [0] * len(new_bins)
+        )
     # Kept bin lists are SHARED with the parent (persistent-structure style):
     # nothing in the engine mutates a bin list without copying the solution
     # first (buffer_swap works on a fresh copy()), so sharing is safe and

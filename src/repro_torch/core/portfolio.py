@@ -12,8 +12,9 @@ iteration-budgeted, as in the reference:
 * GA islands advance generation by generation through the ``lockstep_*``
   phases of `core.ga`, stacking every island's population fitness into one
   leading-axis ``(A, n_pop, NB)`` call;
-* scalar engines (``sa-nfd``'s sequential NFD repack, single-chain ``sa-s``)
-  run their own resumable loops, advanced in segments;
+* scalar engines (``sa-nfd``'s sequential NFD repack, single-chain ``sa-s``,
+  the ``legacy`` backend) run their own resumable loops, advanced in
+  segments;
 * **migration is a deterministic array exchange at fixed barriers**: the
   global best lands in each *other* island's worst warm slot iff strictly
   better under the inventory-penalized cost; patience counters are never
@@ -60,8 +61,9 @@ across cards.
 ``resume=True`` restarts from the newest intact one.  The snapshot is the
 reference's, so a run checkpointed by either package resumes in the other.
 
-Left out of this port so far: the reference's wall-clock thread-pool
-baseline ``pack_portfolio_threads``.
+The reference's wall-clock thread-pool portfolio is here too, as
+:func:`pack_portfolio_threads`: a benchmark baseline only, outside the
+determinism and resume contracts.
 """
 from __future__ import annotations
 
@@ -84,7 +86,13 @@ from .ga import (
     stack_geometry,
     stacked_population_costs,
 )
-from .problem import PackingProblem, PackingResult, Solution, decode_chain_items
+from .problem import (
+    DEFAULT_INVENTORY_PENALTY,
+    PackingProblem,
+    PackingResult,
+    Solution,
+    decode_chain_items,
+)
 from .sa import SimulatedAnnealingPacker
 
 # default barrier spacing: SA iterations / GA generations between migrations
@@ -126,6 +134,10 @@ DEFAULT_RACE_GRID = (
     ("ga-s", {"n_pop": 25}),
     ("sa-nfd", {}),
 )
+
+# offset between per-round reseeds of the legacy thread-pool portfolio; any
+# large odd constant keeps island streams disjoint from the base seeds
+_ROUND_SEED_STRIDE = 7919
 
 
 class TruncationWarning(RuntimeWarning):
@@ -422,7 +434,8 @@ def _sa_fleet_key(packer: SimulatedAnnealingPacker, resolved: str) -> tuple:
 
 def _family_stride(family: str, interval: int, ga_islands: int) -> int:
     """Barrier stride (iterations/generations per barrier) of one engine
-    family — ``"ga"``, ``"scalar"`` (sa-nfd's sequential repack) or
+    family — ``"ga"``, ``"scalar"`` (sa-nfd's sequential repack / the
+    legacy backend) or
     ``"delta"`` (fleet and single-chain sa-s) — on a heterogeneous lineup;
     ``ga_islands`` scales the SA strides (see `_GA_STRIDE_DIV`)."""
     if family == "ga":
@@ -448,7 +461,9 @@ def _island_family(packer) -> str:
     """The `_family_stride` family a packer's island lands in."""
     if isinstance(packer, GeneticPacker):
         return "ga"
-    return "scalar" if packer.perturbation == "nfd" else "delta"
+    if packer.perturbation == "nfd" or packer._resolve_backend() == "legacy":
+        return "scalar"
+    return "delta"
 
 
 def _island_work(packer, family: str, stride: int) -> int:
@@ -846,7 +861,7 @@ def pack_portfolio(
             adapters[k] = _GAIsland(packer, run)
             continue
         packer._hetero = hetero
-        if packer.perturbation == "nfd":
+        if packer.perturbation == "nfd" or resolved == "legacy":
             isl = _ScalarIsland(packer, packer._scalar_start(prob, None), single=False)
         elif packer.n_chains == 1:
             isl = _ScalarIsland(
@@ -1114,5 +1129,171 @@ def pack_portfolio(
                 ))
                 if race is not None else {}
             ),
+        ),
+    )
+
+
+# ---------------------------------------------------- legacy thread portfolio
+class _Island:
+    """A packer plus its warm state, advanced one budgeted round at a time
+    (the legacy thread-pool portfolio's unit of work)."""
+
+    def __init__(self, prob: PackingProblem, spec: IslandSpec, packer):
+        self.prob = prob
+        self.spec = spec
+        self.packer = packer
+        self.is_ga = isinstance(packer, GeneticPacker)
+        self.pop: list[Solution] | None = None  # GA warm population
+        self.chains: list[Solution] | None = None  # SA warm incumbents (1/chain)
+
+    def run_round(self, budget_s: float, round_idx: int) -> PackingResult:
+        self.packer.max_seconds = budget_s
+        self.packer.seed = self.spec.seed + _ROUND_SEED_STRIDE * round_idx
+        if self.is_ga:
+            result = self.packer.pack(self.prob, init_pop=self.pop)
+            self.pop = self.packer.last_population_
+        else:
+            result = self.packer.pack(self.prob, init=self.chains)
+            self.chains = self.packer.last_chains_
+        return result
+
+    def migrate_in(self, best: Solution, best_val: float, score) -> None:
+        """The global best replaces this island's worst warm individual/chain
+        (``score`` is the inventory-penalized cost on heterogeneous problems,
+        the plain cost otherwise)."""
+        warm = self.pop if self.is_ga else self.chains
+        if not warm:
+            return
+        worst = max(range(len(warm)), key=lambda i: score(warm[i]))
+        if score(warm[worst]) > best_val:
+            warm[worst] = best.copy()
+
+
+def pack_portfolio_threads(
+    prob: PackingProblem,
+    islands: Sequence[IslandSpec] | None = None,
+    n_islands: int = 4,
+    algorithms: Sequence[str] = ("ga-nfd", "sa-s", "sa-nfd"),
+    seed: int = 0,
+    max_seconds: float = 30.0,
+    migration_every: float | None = None,
+    intra_layer: bool = False,
+    backend: str = "auto",
+    max_workers: int | None = None,
+    sa_chains: int = 8,
+    device=None,
+    **hyper,
+) -> PackingResult:
+    """The legacy thread-pool portfolio, kept as the benchmark baseline.
+
+    K islands evolve concurrently on a thread pool under one shared
+    wall-clock budget, synchronizing every ``migration_every`` *seconds*
+    (default ``max_seconds / 4``) to migrate the global best.  Rounds are
+    wall-clock budgeted, so results vary with machine speed and load —
+    exactly the nondeterminism the fleet-native :func:`pack_portfolio`
+    replaced.  ``device`` is every island's (``None`` means ``"cuda"``), so
+    on ``cuda`` the islands' kernel calls come from the pool's threads.
+
+    **Baseline only.**  This engine is kept solely as the comparison point
+    for ``tools/portfolio_gate_torch.py``; it is outside the determinism,
+    checkpoint/resume, and scheduler contracts and intentionally grows no
+    ``scheduler``/``fused``/``checkpoint_dir`` surface.  Use
+    :func:`pack_portfolio` for real runs.
+    """
+    from .api import make_packer  # late import: api imports nothing from here
+
+    if islands is None:
+        if n_islands < 1:
+            raise ValueError("n_islands must be >= 1")
+        islands = [
+            IslandSpec(algorithm=algorithms[k % len(algorithms)], seed=seed + k)
+            for k in range(n_islands)
+        ]
+    if not islands:
+        raise ValueError("portfolio needs at least one island")
+    device = resolve_device(device)
+    pool = [
+        _Island(
+            prob,
+            spec,
+            make_packer(
+                spec.algorithm,
+                seed=spec.seed,
+                max_seconds=max_seconds,
+                intra_layer=intra_layer,
+                backend=backend,
+                device=device,
+                **{
+                    **({"n_chains": sa_chains} if spec.algorithm == "sa-s" else {}),
+                    **hyper,
+                    **spec.hyper,
+                },
+            ),
+        )
+        for spec in islands
+    ]
+    interval = migration_every if migration_every is not None else max_seconds / 4.0
+    interval = max(interval, 1e-3)
+
+    # island comparisons use the inventory-penalized cost on heterogeneous
+    # problems so a feasible packing always outranks an overflowing one
+    hetero = prob.n_kinds > 1
+    lam = hyper.get("inventory_penalty", DEFAULT_INVENTORY_PENALTY)
+    if hetero:
+        def score(sol: Solution) -> float:
+            return sol.cost() + lam * sol.inventory_overflow()
+    else:
+        def score(sol: Solution) -> float:
+            return sol.cost()
+
+    t0 = time.perf_counter()
+    rounds: list[tuple[float, list[PackingResult]]] = []
+    best_sol: Solution | None = None
+    best_cost = 0
+    best_val = 0.0
+    iterations = 0
+    round_idx = 0
+    with ThreadPoolExecutor(max_workers=max_workers or len(pool)) as ex:
+        while True:
+            elapsed = time.perf_counter() - t0
+            remaining = max_seconds - elapsed
+            if round_idx > 0 and remaining <= 1e-3:
+                break
+            budget = min(interval, max(remaining, 1e-3))
+            futures = [
+                ex.submit(isl.run_round, budget, round_idx) for isl in pool
+            ]
+            results = [f.result() for f in futures]
+            rounds.append((elapsed, results))
+            for r in results:
+                iterations += r.iterations
+                val = score(r.solution)
+                if best_sol is None or val < best_val:
+                    best_sol, best_cost, best_val = r.solution, r.cost, val
+            for isl in pool:
+                isl.migrate_in(best_sol, best_val, score)
+            round_idx += 1
+    wall = time.perf_counter() - t0
+    trace = _merge_traces(
+        [(offset, r.trace) for offset, results in rounds for r in results]
+    )
+    trace.append((wall, best_cost))
+    names = "+".join(isl.packer.name for isl in pool)
+    return PackingResult(
+        solution=best_sol,
+        cost=int(best_cost),
+        efficiency=best_sol.efficiency(),
+        wall_time_s=wall,
+        algorithm=f"portfolio-threads[{names}]" + ("-intra" if intra_layer else ""),
+        trace=trace,
+        iterations=iterations,
+        params=dict(
+            islands=[
+                dict(algorithm=s.algorithm, seed=s.seed, **s.hyper) for s in islands
+            ],
+            rounds=round_idx,
+            migration_every=interval,
+            backend=backend,
+            seed=seed,
         ),
     )

@@ -715,6 +715,19 @@ class Solution:
         caps = self.problem._kind_caps[self.kinds]
         return g[:, _GBITS] / (g[:, _GPRIM] * caps.astype(np.float64))
 
+    def bin_efficiencies_full(self) -> np.ndarray:
+        """Seed-equivalent uncached scan (legacy benchmark baseline)."""
+        p = self.problem
+        bits_py = p.bits_py
+        out = np.empty(len(self.bins), dtype=np.float64)
+        for bi, b in enumerate(self.bins):
+            k = int(self.kinds[bi])
+            bits = sum(bits_py[i] for i in b)
+            w, h, _ = p.bin_stats(b, k)
+            prim = p.bin_primitives(w, h, k)
+            out[bi] = bits / (prim * p.ram_kinds[k].capacity_bits)
+        return out
+
     def efficiency(self) -> float:
         """Paper Eq. 1 generalized: stored bits / allocated RAM capacity."""
         return self.problem.total_bits / (self.cost() * self.problem.cost_unit_bits)
@@ -722,6 +735,12 @@ class Solution:
     def distinct_layers_per_bin(self) -> float:
         self._refresh()
         return float(self._geom[:, _GNL].sum()) / len(self.bins)
+
+    def distinct_layers_per_bin_full(self) -> float:
+        """Seed-equivalent uncached scan (legacy benchmark baseline)."""
+        layers = self.problem.layers_py
+        total = sum(len({layers[i] for i in b}) for b in self.bins)
+        return total / len(self.bins)
 
     def max_items_per_bin(self) -> int:
         return max(len(b) for b in self.bins)

@@ -203,6 +203,10 @@ class SimulatedAnnealingPacker:
         del self.__dict__["self"]
         self.device = resolve_device(device)
         self._hetero = False  # set per problem in pack()
+        # warm state of the last pack() for the thread-pool portfolio's
+        # restarts: a chain list, or the fleet result whose chains decode
+        # on first read (`last_chains_`)
+        self._warm = None
 
     @property
     def name(self) -> str:
@@ -213,6 +217,13 @@ class SimulatedAnnealingPacker:
 
     def _resolve_backend(self) -> str:
         return resolve_backend(self.backend, self.device)
+
+    @property
+    def last_chains_(self) -> list[Solution] | None:
+        """One warm incumbent a chain from the last `pack()` (None before
+        the first)."""
+        warm = self._warm
+        return warm if warm is None or isinstance(warm, list) else warm.chains
 
     def _perturb(self, sol: Solution, rng: np.random.Generator) -> Solution:
         if self.perturbation == "nfd":
@@ -244,11 +255,12 @@ class SimulatedAnnealingPacker:
 
         ``init`` may be a single solution or a per-chain list (extra chains
         start from fresh NFD packings).  The NFD perturbation always runs
-        the scalar loop (its repack is sequential Python); the swap
-        perturbation runs the single-chain or the multi-chain engine.
+        the scalar loop (its repack is sequential Python); for the swap
+        perturbation the backend selects the engine, ``legacy`` being the
+        scalar loop.
         """
         self._hetero = prob.n_kinds > 1
-        if self.perturbation == "nfd":
+        if self.perturbation == "nfd" or self._resolve_backend() == "legacy":
             return self._pack_scalar(prob, init)
         if self.n_chains == 1:
             return self._pack_single_chain(prob, init, self._resolve_backend())
@@ -256,7 +268,8 @@ class SimulatedAnnealingPacker:
 
     # ------------------------------------------------------------ scalar loop
     def _pack_scalar(self, prob: PackingProblem, init) -> PackingResult:
-        """The serial annealer (one chain, one Solution copy per move)."""
+        """The seed's serial annealer (one chain, one Solution copy per
+        move)."""
         st = self._scalar_start(prob, init)
         self._scalar_run(st)
         return self._scalar_finish(st)
@@ -342,8 +355,9 @@ class SimulatedAnnealingPacker:
         # the trace holds the monotone improvement curve only; the run's end
         # lives in wall_time_s (the seed appended a duplicate terminal tuple)
         wall = time.perf_counter() - st.t_start
+        self._warm = [st.sol]
         return self._result(
-            st.best, int(st.best_cost), wall, st.trace, st.it, "scalar",
+            st.best, int(st.best_cost), wall, st.trace, st.it, "legacy",
             uphill=None,
         )
 
@@ -561,6 +575,7 @@ class SimulatedAnnealingPacker:
 
     def _single_finish(self, st: _SingleChainRun) -> PackingResult:
         wall = time.perf_counter() - st.t_start
+        self._warm = [st.sol]
         return self._result(
             st.best, st.best_cost, wall, st.trace, st.it, st.backend,
             uphill=(st.uphill_prop, st.uphill_acc),
@@ -616,6 +631,7 @@ class SimulatedAnnealingPacker:
             inits = [s for s in init if s is not None][: self.n_chains]
         rng = np.random.default_rng(self.seed)
         out = self._anneal_block([prob], [rng], [inits], backend)[0]
+        self._warm = out
         return self._result(
             out.best, out.best_cost, out.wall, out.trace, out.iterations,
             backend, uphill=out.uphill,
@@ -1207,7 +1223,7 @@ class SimulatedAnnealingPacker:
             p_adm_h=self.p_adm_h,
             seed=self.seed,
             backend=backend,
-            n_chains=self.n_chains if backend != "scalar" else 1,
+            n_chains=self.n_chains if backend != "legacy" else 1,
         )
         if uphill is not None:
             params["exchange_every"] = self.exchange_every

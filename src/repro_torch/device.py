@@ -12,6 +12,9 @@ Backends (the port's counterpart of ``repro.core.ga.BACKENDS``):
 * ``"cuda"`` — the hand-written CUDA kernels (on a CPU device their
   wrappers take the plain versions).
 * ``"auto"`` — ``"cuda"`` on a CUDA device, ``"torch"`` on the CPU.
+* ``"legacy"`` — the seed's from-scratch scalar evaluation (no caches, no
+  batched call, nothing launched on any device), kept as the benchmark
+  baseline: GA costs from ``cost_full()``, SA on the scalar loop.
 
 All backends are bit-identical per seed.
 """
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-BACKENDS = ("auto", "python", "torch", "cuda")
+BACKENDS = ("auto", "python", "torch", "cuda", "legacy")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -4,9 +4,11 @@ memory-efficient blockwise (flash-style) path for long sequences.
 The port of ``repro.models.attention``, in plain PyTorch and on the
 reference's algorithm (the same dispatch at ``_BLOCK_KV``, the same
 running max / sum, the same score dtypes), so the reference's invariants
-test it as they test the reference.  The reference's ``_seq_shard`` /
-``_replicate_dims`` are GSPMD sharding constraints that do nothing on one
-device; they are left out here (the sharding tables are a later slice).
+test it as they test the reference.  The reference's GSPMD constraints
+(``_seq_shard`` / ``_replicate_dims`` under ``cfg.attn_seq_shard``) are
+DTensor redistributions here (`models.redistribute`), with the attention
+core run shard-local on DTensors; a plain tensor passes through them
+unchanged, so the serving and training paths never see them.
 
 Where the reference asks for ``preferred_element_type=float32`` on
 low-precision operands, the operands are cast to float32 first: the same
@@ -22,6 +24,13 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import apply_rope, dense, dense_init, dtype_of, head_rms_norm
+from .redistribute import (
+    pad_local,
+    replicate_dims,
+    seq_shard,
+    seq_sharded,
+    shard_local,
+)
 
 NEG_INF = -1e30
 _BLOCK_KV = 1024  # KV block for the flash-style path
@@ -61,9 +70,21 @@ def _project_qkv(cfg: ModelConfig, params, x, kv_x, q_pos, k_pos, compute_dtype,
     t = kv_x.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = hq // hkv
-    q = dense(params["q"], x, compute_dtype).reshape(b, s, hq, dh)
-    k = dense(params["k"], kv_x, compute_dtype).reshape(b, t, hkv, dh)
-    v = dense(params["v"], kv_x, compute_dtype).reshape(b, t, hkv, dh)
+    q = dense(params["q"], x, compute_dtype)
+    k = dense(params["k"], kv_x, compute_dtype)
+    v = dense(params["v"], kv_x, compute_dtype)
+    if cfg.attn_seq_shard:
+        # SP attention: q sharded on sequence (its heads replicated where
+        # the sequence does not divide, as a decode token's), K/V
+        # replicated over the model axis (a small all-gather, vs
+        # score-sized partial sums when the contraction is split instead);
+        # so head counts that do not divide the model axis never split
+        q = replicate_dims(seq_shard(q, 1), (2,))
+        k = replicate_dims(k, (1, 2))
+        v = replicate_dims(v, (1, 2))
+    q = q.reshape(b, s, hq, dh)
+    k = k.reshape(b, t, hkv, dh)
+    v = v.reshape(b, t, hkv, dh)
     if cfg.qk_norm:
         q = head_rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = head_rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -119,8 +140,8 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, window: int, causal: bool,
     nblk = -(-t // _BLOCK_KV)
     pad = nblk * _BLOCK_KV - t
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = pad_local(k, (0, 0, 0, 0, 0, pad))
+        v = pad_local(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=2**30)  # masked out
     scale = _inv_sqrt(d, scores_dtype)
     acc = torch.zeros((b, s, n, g, d), dtype=torch.float32, device=q.device)
@@ -149,7 +170,7 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, window: int, causal: bool,
 
 
 def _sdpa_windowed_blocks(q, k, v, window: int, block_q: int = 1024,
-                          scores_dtype=torch.float32):
+                          scores_dtype=torch.float32, q_offset: int = 0):
     """Sliding-window attention with *static* block skipping.
 
     For a window of W tokens, each q block [i*Bq, (i+1)*Bq) can only attend
@@ -158,7 +179,8 @@ def _sdpa_windowed_blocks(q, k, v, window: int, block_q: int = 1024,
     blocks are never touched.
 
     Assumes self-attention with q_pos == k_pos == arange(S) (the prefill /
-    train path); requires an int window > 0.
+    train path), ``q`` holding positions from ``q_offset`` on (a sequence
+    shard; the whole sequence when 0); requires an int window > 0.
     """
     s = q.shape[1]
     bq = min(block_q, s)
@@ -166,12 +188,13 @@ def _sdpa_windowed_blocks(q, k, v, window: int, block_q: int = 1024,
     outs = []
     for i in range(nblk):
         q0, q1 = i * bq, min((i + 1) * bq, s)
-        k0 = max(0, q0 - window + 1)
+        a0, a1 = q0 + q_offset, q1 + q_offset  # absolute positions
+        k0 = max(0, a0 - window + 1)
         bias = _mask_bias(
-            torch.arange(q0, q1, device=q.device), torch.arange(k0, q1, device=q.device),
+            torch.arange(a0, a1, device=q.device), torch.arange(k0, a1, device=q.device),
             window, causal=True,
         )
-        outs.append(_sdpa(q[:, q0:q1], k[:, k0:q1], v[:, k0:q1], bias, scores_dtype))
+        outs.append(_sdpa(q[:, q0:q1], k[:, k0:a1], v[:, k0:a1], bias, scores_dtype))
     return torch.cat(outs, dim=1)
 
 
@@ -197,15 +220,19 @@ def attn_apply(
     k_pos = q_pos if k_pos is None else k_pos
     q, k, v = _project_qkv(cfg, params, x, kv_src, q_pos, k_pos, compute_dtype, rope)
     windowed = window > 0 and causal and kv_x is None and kv_src.shape[1] > _BLOCK_KV
-    if windowed:
-        out = _sdpa_windowed_blocks(q, k, v, window, scores_dtype=scores_dtype)
-    elif kv_src.shape[1] > _BLOCK_KV:
-        out = _sdpa_blockwise(
-            q, k, v, q_pos, k_pos, window, causal, scores_dtype=scores_dtype
-        )
-    else:
+
+    def core(q, k, v, q_pos, q_offset):
+        if windowed:
+            return _sdpa_windowed_blocks(q, k, v, window, scores_dtype=scores_dtype,
+                                         q_offset=q_offset)
+        if kv_src.shape[1] > _BLOCK_KV:
+            return _sdpa_blockwise(
+                q, k, v, q_pos, k_pos, window, causal, scores_dtype=scores_dtype
+            )
         bias = _mask_bias(q_pos, k_pos, window, causal)
-        out = _sdpa(q, k, v, bias, scores_dtype)
+        return _sdpa(q, k, v, bias, scores_dtype)
+
+    out = shard_local(core, q, (k, v), q_pos)
     b, s = x.shape[:2]
     out = dense(params["o"], out.reshape(b, s, cfg.attn_dim), compute_dtype)
     if return_kv:
@@ -269,10 +296,20 @@ def attn_decode(
     )[None, :]
     b = x.shape[0]
     if update_cache or not append_self:
-        out = _sdpa(q, k_att, v_att, bias, scores_dtype=compute_dtype)
+        def core(q, k_att, v_att, _pos, _off):
+            return _sdpa(q, k_att, v_att, bias, scores_dtype=compute_dtype)
+        kvs = (k_att, v_att)
     else:
         # deferred write: two-part softmax merge of (frozen cache, self)
-        out = _sdpa_merge_self(q, k_att, v_att, bias, k_new, v_new)
+        def core(q, k_att, v_att, k_new, v_new, _pos, _off):
+            return _sdpa_merge_self(q, k_att, v_att, bias, k_new, v_new)
+        kvs = (k_att, v_att, k_new, v_new)
+    if seq_sharded(k_att):
+        # a cache sharded on its sequence (ring-style reads): the softmax
+        # spans the shards, so the core runs on the DTensors themselves
+        out = core(q, *kvs, q_pos, 0)
+    else:
+        out = shard_local(core, q, kvs, q_pos)
     out = dense(params["o"], out.reshape(b, 1, cfg.attn_dim), compute_dtype)
     if update_cache:
         return out, k_cache, v_cache

@@ -18,6 +18,7 @@ from .config import ModelConfig
 from .layers import apply_norm, dtype_of, mlp_apply, mlp_init, norm_init
 from .mamba2 import ssm_apply, ssm_decode, ssm_init
 from .moe import moe_apply, moe_init
+from .redistribute import pad_local
 
 
 def _branch_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -131,7 +132,7 @@ def block_prefill(
     def pad_cache(kv):
         if cache_len < s:
             raise ValueError(f"cache_len {cache_len} is shorter than the prompt ({s})")
-        return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, cache_len - s))
+        return pad_local(kv, (0, 0, 0, 0, 0, cache_len - s))
 
     def attend(params, hn, **kw):
         return attn_apply(

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .redistribute import matmul_local
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -42,7 +43,7 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False) ->
 
 
 def dense(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    y = torch.matmul(x.to(compute_dtype), params["kernel"].to(compute_dtype))
+    y = matmul_local(x.to(compute_dtype), params["kernel"].to(compute_dtype))
     if "bias" in params:
         y = y + params["bias"].to(compute_dtype)
     return y

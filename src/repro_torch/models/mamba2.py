@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import dense, dense_init, truncated_normal_init
+from .redistribute import fit_split, pad_local, ssd_local
 
 
 def ssm_init(cfg: ModelConfig, gen, dtype, device) -> dict:
@@ -83,7 +84,7 @@ def _causal_conv(kernel: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> t
     reference's explicit shift-and-sum."""
     kweight = kernel.to(x.dtype)
     kw = kweight.shape[0]
-    xpad = F.pad(x, (0, 0, kw - 1, 0))
+    xpad = pad_local(x, (0, 0, kw - 1, 0))
     out = sum(
         xpad[:, i : i + x.shape[1], :] * kweight[i][None, None, :] for i in range(kw)
     )
@@ -108,34 +109,28 @@ def _einsum_f32(eq: str, compute_dtype, *ops: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *(o.to(compute_dtype).float() for o in ops))
 
 
-def ssm_apply(
-    cfg: ModelConfig, params: dict, x_in: torch.Tensor, compute_dtype,
-    return_state: bool = False,
-):
-    """Full-sequence SSD. x_in: (B, S, D) -> (B, S, D).
-
-    With ``return_state`` also returns the decode cache dict (final SSM state
-    + conv tail) so prefill can hand off to single-step decoding."""
-    b, s_orig, _ = x_in.shape
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+def _ssd(cfg: ModelConfig, compute_dtype, xs_conv, bmat, cmat, dt, dt_bias, a_log,
+         d_skip):
+    """The chunked SSD scan over the conv outputs: returns y (B, S, H*P) in
+    the compute dtype, with the skip term, and the final (B, H, P, N)
+    state.  The head count comes from ``dt``'s last dim (a head shard's
+    own when `ssd_local` runs it per rank)."""
+    b, s_orig, _ = xs_conv.shape
+    n, h, p = bmat.shape[-1], dt.shape[-1], cfg.ssm_head_dim
+    di = h * p
     lchunk = min(cfg.ssm_chunk, s_orig)
     pad = (-s_orig) % lchunk
     s = s_orig + pad
     nc = s // lchunk
-    dev = x_in.device
-
-    z, xs_raw, bs_raw, cs_raw, dt = _project_streams(cfg, params, x_in, compute_dtype)
-    xs_conv = _causal_conv(params["conv_x"], params["conv_x_bias"], xs_raw)
-    bmat = _causal_conv(params["conv_b"], params["conv_b_bias"], bs_raw)
-    cmat = _causal_conv(params["conv_c"], params["conv_c_bias"], cs_raw)
+    dev = xs_conv.device
     if pad:
-        xs_conv = F.pad(xs_conv, (0, 0, 0, pad))
-        bmat = F.pad(bmat, (0, 0, 0, pad))
-        cmat = F.pad(cmat, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+        xs_conv = pad_local(xs_conv, (0, 0, 0, pad))
+        bmat = pad_local(bmat, (0, 0, 0, pad))
+        cmat = pad_local(cmat, (0, 0, 0, pad))
+        dt = pad_local(dt, (0, 0, 0, pad))
     xs = xs_conv.reshape(b, s, h, p)
-    dt = _softplus(dt.float() + params["dt_bias"].float())  # (B, S, H)
-    a = -torch.exp(params["a_log"].float())  # (H,)
+    dt = _softplus(dt.float() + dt_bias.float())  # (B, S, H)
+    a = -torch.exp(a_log.float())  # (H,)
     log_a = dt * a[None, None, :]  # (B, S, H) negative
     xdt = xs.float() * dt[..., None]  # dt-weighted input
     if pad:
@@ -177,8 +172,28 @@ def ssm_apply(
     y_off = _einsum_f32("bcln,bclh,bchpn->bclhp", compute_dtype, cc, decay_from_start, h_in)
 
     y = (y_diag + y_off).reshape(b, s, h, p)
-    y = y + xs.float() * params["d_skip"].float()[None, None, :, None]
+    y = y + xs.float() * d_skip.float()[None, None, :, None]
     y = y.reshape(b, s, di)[:, :s_orig].to(compute_dtype)
+    return y, h_final
+
+
+def ssm_apply(
+    cfg: ModelConfig, params: dict, x_in: torch.Tensor, compute_dtype,
+    return_state: bool = False,
+):
+    """Full-sequence SSD. x_in: (B, S, D) -> (B, S, D).
+
+    With ``return_state`` also returns the decode cache dict (final SSM state
+    + conv tail) so prefill can hand off to single-step decoding."""
+    s_orig = x_in.shape[1]
+    z, xs_raw, bs_raw, cs_raw, dt = _project_streams(cfg, params, x_in, compute_dtype)
+    xs_conv = _causal_conv(params["conv_x"], params["conv_x_bias"], xs_raw)
+    bmat = _causal_conv(params["conv_b"], params["conv_b_bias"], bs_raw)
+    cmat = _causal_conv(params["conv_c"], params["conv_c_bias"], cs_raw)
+    y, h_final = ssd_local(
+        lambda *t: _ssd(cfg, compute_dtype, *t),
+        xs_conv, bmat, cmat, dt, (params["dt_bias"], params["a_log"], params["d_skip"]),
+    )
     y = _gated_norm(params["norm_scale"], y, z, cfg.norm_eps)
     out = dense(params["out_proj"], y, compute_dtype)
     if return_state:
@@ -188,7 +203,7 @@ def ssm_apply(
         def tail(stream):
             t_ = stream[:, max(0, s_orig - kw) : s_orig, :]
             if s_orig < kw:  # left-pad zeros (conv history before t=0)
-                t_ = F.pad(t_, (0, 0, kw - s_orig, 0))
+                t_ = pad_local(t_, (0, 0, kw - s_orig, 0))
             return t_.to(compute_dtype)
 
         cache = {
@@ -224,7 +239,7 @@ def ssm_decode(
         [params["conv_x_bias"], params["conv_b_bias"], params["conv_c_bias"]], dim=-1
     ).to(compute_dtype)
     conv_out = torch.einsum("bkc,kc->bc", window, kweight) + kbias
-    conv_out = F.silu(conv_out)[:, None, :]  # (B, 1, C)
+    conv_out = fit_split(F.silu(conv_out)[:, None, :], -1, h)  # (B, 1, C)
     new_conv_cache = window[:, 1:, :].to(cache["conv"].dtype)
 
     xs = conv_out[..., :di].reshape(b, h, p).float()
@@ -240,4 +255,4 @@ def ssm_decode(
     y = y.reshape(b, 1, di).to(compute_dtype)
     y = _gated_norm(params["norm_scale"], y, z, cfg.norm_eps)
     out = dense(params["out_proj"], y, compute_dtype)
-    return out, {"conv": new_conv_cache, "state": state}
+    return out, {"conv": new_conv_cache, "state": fit_split(state, 1, h)}

@@ -25,6 +25,13 @@ from .blocks import block_apply_train, block_decode, block_init, block_prefill
 from .config import ModelConfig
 from .layers import apply_norm, dense_init, dtype_of, norm_init, truncated_normal_init
 from .mamba2 import ssm_init_cache
+from .redistribute import (
+    embed_lookup,
+    gather_last,
+    logits_local,
+    logsumexp_last,
+    write_slot,
+)
 
 
 # ------------------------------------------------------------------ helpers
@@ -177,7 +184,7 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
     """Token (+ stub modality) embedding. Returns (h, positions)."""
     compute_dtype = dtype_of(cfg.dtype)
     tokens = batch["tokens"]
-    h = params["embed"][tokens].to(compute_dtype)
+    h = embed_lookup(params["embed"], tokens).to(compute_dtype)
     if cfg.frontend == "vision_stub" and "patches" in batch:
         patches = batch["patches"].to(compute_dtype)  # (B, P, D) precomputed
         h = torch.cat([patches, h], dim=1)
@@ -190,10 +197,12 @@ def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     accumulated in float32."""
     compute_dtype = dtype_of(cfg.dtype)
     if cfg.tie_embeddings:
-        w = params["embed"].to(compute_dtype)
-        return torch.einsum("bsd,vd->bsv", h.float(), w.float())
-    w = params["lm_head"]["kernel"].to(compute_dtype)
-    return torch.einsum("bsd,dv->bsv", h.float(), w.float())
+        return logits_local(
+            lambda h, w: torch.einsum("bsd,vd->bsv", h.float(), w.to(compute_dtype).float()),
+            h, params["embed"], 0)
+    return logits_local(
+        lambda h, w: torch.einsum("bsd,dv->bsv", h.float(), w.to(compute_dtype).float()),
+        h, params["lm_head"]["kernel"], 1)
 
 
 def _decoder_inputs(cfg: ModelConfig, params: dict, batch: dict):
@@ -205,7 +214,7 @@ def _decoder_inputs(cfg: ModelConfig, params: dict, batch: dict):
     enc_out = _encode(cfg, params, batch["frames"].to(compute_dtype))
     tokens = batch["tokens"]
     t = tokens.shape[1]
-    h = params["embed"][tokens].to(compute_dtype)
+    h = embed_lookup(params["embed"], tokens).to(compute_dtype)
     h = h + params["dec_pos"][:t].to(h.dtype)[None]
     positions = torch.arange(t, dtype=torch.int32, device=h.device)
     cross_pos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=h.device)
@@ -233,8 +242,8 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict):
         logits = logits[:, logits.shape[1] - targets.shape[1]:]
     mask = (targets >= 0).float()
     safe_targets = targets.clamp_min(0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe_targets[..., None])[..., 0]
+    logz = logsumexp_last(logits)
+    gold = gather_last(logits, safe_targets)
     ce = (logz - gold) * mask
     tokens = mask.sum()
     loss = ce.sum() / tokens.clamp_min(1.0)
@@ -247,7 +256,15 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict):
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:
     """All-layer stacked decode cache (compute-dtype KV, fp32 SSM state) on
     ``device`` (``None`` means ``"cuda"``)."""
-    device = resolve_device(device)
+    return _init_cache(cfg, batch, cache_len, resolve_device(device))
+
+
+def init_meta_cache(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    """The decode cache's shapes and dtypes on the ``meta`` device."""
+    return _init_cache(cfg, batch, cache_len, torch.device("meta"))
+
+
+def _init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
     compute_dtype = dtype_of(cfg.dtype)
     layers = cfg.n_layers
     cache: dict = {}
@@ -293,7 +310,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor
     dict holds them and the new SSM states."""
     compute_dtype = dtype_of(cfg.dtype)
     pos = int(pos)
-    h = params["embed"][token[:, None]].to(compute_dtype)
+    h = embed_lookup(params["embed"], token[:, None]).to(compute_dtype)
     rope = True
     if cfg.encoder_decoder:
         # dynamic_slice clamps the start into the table
@@ -312,8 +329,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor
     new_cache = dict(cache)
     if "k_new" in ys:
         at = min(max(pos, 0), cache["k"].shape[2] - 1)
-        cache["k"][:, :, at:at + 1] = ys["k_new"].to(cache["k"].dtype)
-        cache["v"][:, :, at:at + 1] = ys["v_new"].to(cache["v"].dtype)
+        write_slot(cache["k"], 2, at, ys["k_new"].to(cache["k"].dtype))
+        write_slot(cache["v"], 2, at, ys["v_new"].to(cache["v"].dtype))
     if "ssm" in ys:
         new_cache["ssm"] = ys["ssm"]
     h = apply_norm(cfg, params["final_norm"], h)

@@ -13,10 +13,16 @@ FLOP accounting matches `6 * N_active * D`: expert GEMMs run on
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import activation, truncated_normal_init
+from .redistribute import (
+    expert_local,
+    fit_split,
+    pad_local,
+    pin_batch,
+    router_local,
+)
 
 MOE_GROUP = 512  # tokens per dispatch group
 
@@ -47,15 +53,17 @@ def moe_apply(
     n = b * s
     g = min(MOE_GROUP, n)
     pad = (-n) % g
-    xt = x.reshape(n, d).to(compute_dtype)
+    xt = pin_batch(x).reshape(n, d).to(compute_dtype)
     if pad:
-        xt = F.pad(xt, (0, 0, 0, pad))
+        xt = pad_local(xt, (0, 0, 0, pad))
     ng = (n + pad) // g
-    xg = xt.reshape(ng, g, d)  # (G, g, d)
+    xg = fit_split(xt, 0, ng).reshape(ng, g, d)  # (G, g, d)
 
     # the router's products in float32 (the reference's preferred_element_type)
-    logits = torch.einsum(
-        "Gnd,de->Gne", xg.float(), params["router"].to(compute_dtype).float()
+    logits = router_local(
+        lambda xg, router: torch.einsum(
+            "Gnd,de->Gne", xg.float(), router.to(compute_dtype).float()),
+        xg, params["router"],
     )
     probs = torch.softmax(logits, dim=-1)  # (G, g, e) fp32
     # jax.lax.top_k's order: ties go to the lower expert index (the padded
@@ -78,17 +86,22 @@ def moe_apply(
     combine = (slot_oh * gate_vals[..., None].to(compute_dtype)).sum(2)
 
     expert_in = torch.einsum("Gns,Gnd->Gsd", dispatch, xg).reshape(ng, e, cap, d)
-    up = torch.einsum("Gecd,edf->Gecf", expert_in, params["up"].to(compute_dtype))
+
+    def ffn(expert_in, up_w, down_w, gate_w=None):
+        up = torch.einsum("Gecd,edf->Gecf", expert_in, up_w.to(compute_dtype))
+        if gate_w is not None:
+            gate = torch.einsum("Gecd,edf->Gecf", expert_in, gate_w.to(compute_dtype))
+            h = activation(cfg.mlp_act, gate) * up
+        else:
+            h = activation(cfg.mlp_act, up)
+        return torch.einsum("Gecf,efd->Gecd", h, down_w.to(compute_dtype))
+
+    tables = [params["up"], params["down"]]
     if cfg.mlp_gated:
-        gate = torch.einsum("Gecd,edf->Gecf", expert_in, params["gate"].to(compute_dtype))
-        h = activation(cfg.mlp_act, gate) * up
-    else:
-        h = activation(cfg.mlp_act, up)
-    expert_out = torch.einsum(
-        "Gecf,efd->Gecd", h, params["down"].to(compute_dtype)
-    ).reshape(ng, e * cap, d)
+        tables.append(params["gate"])
+    expert_out = expert_local(ffn, expert_in, tables).reshape(ng, e * cap, d)
     out = torch.einsum("Gns,Gsd->Gnd", combine, expert_out)
-    out = out.reshape(n + pad, d)[:n].reshape(b, s, d)
+    out = pin_batch(out.reshape(n + pad, d)[:n].reshape(b, s, d))
 
     # load-balance auxiliary loss (Switch/GShard)
     me = probs.reshape(-1, e).mean(0)

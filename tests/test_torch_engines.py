@@ -98,7 +98,7 @@ def test_warm_starts_match_reference():
 
 def test_portfolio_and_legacy_wait_for_later_slices(tmp_path):
     """The portfolio, its checkpoints and its sharded fleets are ported;
-    the legacy backend waits for a later slice."""
+    so, now, is the legacy backend (its parity: ``test_torch_legacy.py``)."""
     prob = port.get_problem("CNV-W1A1")
     assert "portfolio" in port.ALGORITHMS
     r = port.pack(prob, "portfolio", device="cpu", checkpoint_dir=str(tmp_path / "ck"),
@@ -112,5 +112,8 @@ def test_portfolio_and_legacy_wait_for_later_slices(tmp_path):
     assert _key(two) == _key(one)
     assert (two.params["barriers"], two.params["migrations"]) == (
         one.params["barriers"], one.params["migrations"])
-    with pytest.raises(ValueError, match="legacy"):
-        port.pack(prob, "ga-nfd", backend="legacy", device="cpu")
+    r = port.pack(prob, "ga-nfd", backend="legacy", device="cpu",
+                  max_generations=3, max_seconds=1e9)
+    assert r.params["backend"] == "legacy"
+    with pytest.raises(ValueError, match="unknown backend"):
+        port.pack(prob, "ga-nfd", backend="ref", device="cpu")

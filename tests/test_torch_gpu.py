@@ -13,8 +13,10 @@ packing on the card as on the host, the LM's smoke configs on the card
 within float32 rounding of the host, and ``decode_demo --packed`` (the
 plan on K1) serving bit-equal to the unpacked tree; one float32 train
 step on the card within 1e-4 of the host (gradients and updated
-parameters, no kernel launched), and a `TrainLoop` checkpoint restored to
-the card bit-equal.
+parameters, no kernel launched), a `TrainLoop` checkpoint restored to
+the card bit-equal; the ``legacy`` baselines equal to the kernels on the
+card, and the dry run's one-card reading (the fake trace's counts equal
+to the real step's).
 
 Imports neither JAX nor the reference package, so it runs on a GPU host
 that has only PyTorch:
@@ -853,3 +855,65 @@ def test_train_loop_checkpoint_restores_to_the_card(tmp_path):
     assert restored.opt["step"].is_cuda and int(restored.opt["step"]) == 4
     final2, _, hist2 = second.run(restored, start)
     assert final2 == 6 and len(hist2) == 2 and all(np.isfinite(hist2))
+
+
+@pytest.mark.gpu
+def test_legacy_baseline_equals_cuda_on_card():
+    """GA-NFD and single-chain SA-S on ``legacy`` (nothing launched) and on
+    ``cuda`` (K1 / K3) give one record on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.core as rc
+
+    prob = rc.get_problem("CNV-W2A2", device="U50")
+    for alg, kw, own in (("ga-nfd", dict(max_generations=6, n_pop=16),
+                          "binpack_fitness_kinds_cuda"),
+                         ("sa-s", dict(n_chains=1, max_iterations=300),
+                          "sa_step_deltas_kinds_cuda")):
+        recs = []
+        for backend in ("legacy", "cuda"):
+            kernels.reset_launch_counts()
+            r = rc.pack(prob, alg, seed=3, max_seconds=1e9, backend=backend, **kw)
+            n = kernels.launch_counts()
+            recs.append((r.cost, r.solution.bins, list(r.solution.kinds), r.iterations,
+                         [c for _, c in r.trace]))
+            if backend == "legacy":
+                assert not any(n.values()) and r.params["backend"] == "legacy"
+            else:
+                assert n[own] > 0
+        assert recs[0] == recs[1], alg
+
+
+@pytest.mark.gpu
+def test_dryrun_host_mesh_reading_equals_the_real_step_on_card():
+    """A smoke config's train and decode steps on ``make_host_mesh()``:
+    the fake trace's per-device FLOPs and argument bytes equal the real
+    step's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models.config import ShapeConfig
+
+    try:
+        mesh = make_host_mesh()
+        cfg = get_smoke_config("qwen3-0.6b")
+        for kind in ("train", "decode"):
+            shape = ShapeConfig("x", 64, 4, kind)
+            fake, mem = dryrun.trace_step(cfg, shape, mesh)
+            step, args = dryrun.build_inputs(dryrun.serving_config(cfg, shape), shape, mesh,
+                                             torch.device("cuda"), fake=False)
+            real = OpCounter()
+            with implicit_replication(), real:
+                step(*args)
+            torch.cuda.synchronize()
+            assert real.cost.flops == fake.cost.flops and real.n_ops == fake.n_ops
+            assert dryrun._local_bytes(args) == mem["argument_bytes"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

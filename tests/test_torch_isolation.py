@@ -24,6 +24,7 @@ def test_port_sources_import_no_jax_and_no_reference():
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
         ROOT / "tools" / "serve_traffic_torch.py",
         ROOT / "tools" / "sweep_resume_torch.py",
+        ROOT / "tools" / "portfolio_gate_torch.py",
         ROOT / "examples" / "serve_packed_torch.py",
         ROOT / "examples" / "quickstart_torch.py",
         ROOT / "examples" / "dse_loop_torch.py",
@@ -37,8 +38,11 @@ def test_port_sources_import_no_jax_and_no_reference():
         assert (ROOT / "src" / "repro_torch" / "optim" / name) in files
     for name in ("steps.py", "loop.py"):
         assert (ROOT / "src" / "repro_torch" / "runtime" / name) in files
-    for name in ("train.py", "decode_demo.py"):
+    for name in ("train.py", "decode_demo.py", "specs.py", "dryrun.py",
+                 "op_analysis.py", "report.py"):
         assert (ROOT / "src" / "repro_torch" / "launch" / name) in files
+    for name in ("__init__.py", "rules.py"):
+        assert (ROOT / "src" / "repro_torch" / "sharding" / name) in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -296,3 +300,43 @@ def test_kernels_build_nothing_at_import():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_cpu_baselines_and_dryrun_load_neither_jax_nor_reference(tmp_path):
+    """The ``legacy`` backend, the thread-pool portfolio and its gate, and
+    the production-mesh dry run (specs, sharding rules, cost model, a
+    smoke cell on a fake mesh, the report) import nothing of JAX or the
+    reference."""
+    code = (
+        "import importlib.util, sys, dataclasses\n"
+        "import repro_torch.core as c\n"
+        "p = c.get_problem('CNV-W1A1')\n"
+        "r = c.pack(p, 'ga-nfd', backend='legacy', device='cpu', max_generations=2,\n"
+        "           max_seconds=1e9)\n"
+        "assert r.params['backend'] == 'legacy'\n"
+        "r = c.pack_portfolio_threads(p, n_islands=2, max_seconds=0.3, backend='torch',\n"
+        "                             sa_chains=2, device='cpu')\n"
+        f"spec = importlib.util.spec_from_file_location('g', {str(ROOT / 'tools' / 'portfolio_gate_torch.py')!r})\n"
+        "g = importlib.util.module_from_spec(spec); spec.loader.exec_module(g)\n"
+        "assert g.parse_args([]).backend == 'cuda'\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.launch import dryrun, report, specs, op_analysis\n"
+        "from repro_torch.launch.mesh import make_fake_mesh\n"
+        "from repro_torch.models.config import SHAPES\n"
+        "import repro_torch.sharding as sh\n"
+        "mesh = make_fake_mesh((2, 2), ('data', 'model'), device='cpu')\n"
+        "shape = dataclasses.replace(SHAPES['train_4k'], seq_len=32, global_batch=4)\n"
+        "counter, mem = dryrun.trace_step(get_smoke_config('qwen3-0.6b'), shape, mesh, 'cpu')\n"
+        "assert counter.cost.flops > 0\n"
+        f"report.main(['--dir', {str(tmp_path)!r}])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
