@@ -62,9 +62,11 @@ no result line):
    cache, solving and launching nothing; K1-K4 exactly equal to their
    plain versions on each group's first input ((16, 75, 2253),
    (32, 75, 2253), (128, 4), (256, 4)); candidates/s per backend and one
-   cuda sweep per algorithm under ``torch.profiler``;
-6b. crash-safe resume, in a temporary directory removed at the end: the
-   SA fleet checkpointed every 250 iterations, killed after its second
+   cuda sweep per algorithm of the BRAM18-only group (16 positions) under
+   ``torch.profiler``;
+6b. crash-safe resume, in a temporary directory removed at the end, on
+   6a's positions at seed 0 (25, both cost-model groups): the SA fleet
+   checkpointed every 250 iterations, killed after its second
    snapshot (an exception from ``on_checkpoint``) and resumed, then its
    newest snapshot torn and resumed again; the GA fleet every 4
    generations, killed after snapshot 2 and resumed; the RN152-W1A2
@@ -90,10 +92,11 @@ no result line):
 6d. sharded fleets, in a temporary directory removed at the end: on a
    sweep mesh of every card where there are several, else of the one
    card twice (``SweepMesh([cuda:0] * 2)``: the row split, the padding
-   and the pins on the card, no scaling across cards), 6a's 50-position
-   SA-S fleet at ``n_shards=4``, row-split on the mesh (K3 / K4 once per
-   mesh device per call) and on the mesh at ``n_shards=2`` (sub-fleets
-   pinned round-robin); 6a's BRAM18-only GA-NFD group at ``n_shards=3``
+   and the pins on the card, no scaling across cards), 6a's BRAM18-only
+   SA-S group (16 positions) at ``n_shards=4`` and on the mesh at
+   ``n_shards=2`` (sub-fleets pinned round-robin), 6a's 50-position SA-S
+   fleet row-split on the mesh (K3 / K4 once per mesh device per call);
+   6a's BRAM18-only GA-NFD group at ``n_shards=3``
    and 3 BRAM18 + 3 U50 problems on the mesh (225 stacked rows a call:
    ragged, so the padding runs); the default-lineup portfolio on the mesh
    on RN152-W1A2 and @U50, fused (K5 row-split); a 5-island SA-S
@@ -150,6 +153,17 @@ no result line):
    the card under the same counter: per-device FLOPs and argument bytes
    equal exactly, predicted peak memory beside ``max_memory_allocated``,
    the measured step beside its roofline bound;
+6h. cold threads: ``tools/cold_threads_torch.py`` in 4 fresh child
+   processes started together, each with the switch interval at 1 us and
+   nothing of the port loaded before its first calls: the thread-pool
+   portfolio on CNV-W1A1 (4 islands, 1 s; K1 / K3 from the pool's
+   threads), an SA-S sweep over 8 of 6a's positions at ``n_shards=4`` on
+   the mesh (K3 / K4 from the shard threads), and the concurrent
+   portfolio on CNV-W1A1 and @U50, fused and unfused, with islands on the
+   side lane (K5 on the calling thread, K1-K4 on the side lane's); each
+   child must exit 0 within its timeout, launch each of K1-K5, and give
+   sweep and portfolio records equal to the same calls on ``python``,
+   computed here; each child's seconds and launch counts (``[cold]``);
 7. timing: each kernel per launch (CUDA events around a CUDA graph of
    launches) and per wrapper call, its plain version, the ops layer per
    call with the host<->device copies, and those copies on their own (for
@@ -1288,6 +1302,13 @@ def dse_fleet():
     return probs, seeds, labels
 
 
+def dse_bram18(labels):
+    """The positions of 6a's BRAM18-only group (the 8 accelerators with no
+    device, two seeds; the renamed copies left out)."""
+    return [i for i, (_, dev, _) in enumerate(labels[:len(labels) - len(DSE_RENAMED)])
+            if dev is None]
+
+
 def dse_kwargs(alg):
     import repro_torch.core as rc
 
@@ -1412,7 +1433,7 @@ def dse_path(device) -> dict:
     bit for bit; RN152-W1A2 and RN152-W1A2@U50 also against their own
     ``pack()``; a second SA sweep served from the first one's cache with no
     launch; K1-K4 held against their plain versions at the sweep's shapes;
-    one profiled cuda sweep per algorithm."""
+    one profiled cuda sweep per algorithm of the BRAM18-only group."""
     from torch.profiler import ProfilerActivity, profile
 
     import repro_torch.core as rc
@@ -1506,13 +1527,16 @@ def dse_path(device) -> dict:
     print(f"[dse] cached SA re-sweep: 0 solved, 0 launches, "
           f"{out['cached_candidates_per_sec']:.1f} candidates/s")
     out["cases"] = check_dse_kernels(out["first"], device)
+    # one busy share a sweep needs no third pass over all 50 positions (the
+    # GA's NFD start alone is ~20 s of one): the BRAM18-only group
+    sub = dse_bram18(labels)
     for alg in DSE_ALGS:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sw = rc.pack_sweep(probs, alg, seeds=seeds, backend="cuda", device=device,
-                               **dse_kwargs(alg))
-        if sweep_key(sw) != out["records"][alg]:
+            sw = rc.pack_sweep([probs[i] for i in sub], alg, seeds=[seeds[i] for i in sub],
+                               backend="cuda", device=device, **dse_kwargs(alg))
+        if sweep_key(sw) != [result_key(out["results"][alg][labels[i]]) for i in sub]:
             raise AssertionError(f"dse {alg}: the profiled sweep diverges")
-        key = f"dse {alg} x{len(probs)}"
+        key = f"dse {alg} bram18 x{len(sub)}"
         out["profile"][key] = device_share(prof, sw.wall_time_s * 1e6, key,
                                            f"{sw.n_solved} candidates")
     print(f"[dse] launches: {json.dumps(launches)}")
@@ -1557,13 +1581,15 @@ def tear_newest(ck_dir) -> Path:
 
 def resume_path(device, dse, portfolio_key_cuda) -> dict:
     """Crash-safe resume on the card, in a temporary directory removed at
-    the end: the DSE phase's SA-S fleet checkpointed every 250 iterations,
+    the end, on the DSE phase's positions at seed 0: the SA-S fleet
+    checkpointed every 250 iterations,
     killed after snapshot 2 and resumed, then its newest snapshot torn and
     resumed again; the GA-NFD fleet every 4 generations, killed after
     snapshot 2 and resumed; the RN152-W1A2 default-lineup portfolio every 8
     barriers, killed after snapshot 2 and resumed.  Every resumed record
-    must equal the uninterrupted cuda run.  Launch counts are set to 0 just
-    before the phase and read just after."""
+    must equal the uninterrupted cuda run (6a's records of those
+    positions).  Launch counts are set to 0 just before the phase and read
+    just after."""
     import shutil
     import tempfile
 
@@ -1571,7 +1597,12 @@ def resume_path(device, dse, portfolio_key_cuda) -> dict:
     from repro_torch import kernels
 
     t_phase = time.perf_counter()
-    probs, seeds, _ = dse_fleet()
+    probs, seeds, labels = dse_fleet()
+    # seed 0 only (25 positions, both cost-model groups): at all 50 the GA
+    # lane's NFD start and its 93 MB snapshots were half of the phase
+    sub = [i for i, (_, _, s) in enumerate(labels) if s == 0]
+    probs, seeds = [probs[i] for i in sub], [seeds[i] for i in sub]
+    want = {alg: [dse["records"][alg][i] for i in sub] for alg in DSE_ALGS}
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
     out = {}
     try:
@@ -1594,14 +1625,14 @@ def resume_path(device, dse, portfolio_key_cuda) -> dict:
                     pass
                 resumed = sweep(resume=True)
                 check_sweep(resumed, f"resume {alg}")
-                if sweep_key(resumed) != dse["records"][alg]:
+                if sweep_key(resumed) != want[alg]:
                     raise AssertionError(f"resume {alg}: the resumed sweep differs "
                                          "from the uninterrupted one")
                 torn = None
                 if alg == "sa-s":
                     torn = tear_newest(ck).name
                     again = sweep(resume=True)
-                    if sweep_key(again) != dse["records"][alg]:
+                    if sweep_key(again) != want[alg]:
                         raise AssertionError(f"resume {alg}: the sweep resumed past a "
                                              "torn snapshot differs")
                 mine = list(zip(saves.calls[n0:], saves.notes[n0:]))
@@ -2187,10 +2218,10 @@ def ragged_mesh_checks(captured, mesh, device) -> list:
 
 
 def shard_path(device, dse, portfolio) -> dict:
-    """Sharded fleets on the card: 6a's 50-position fleet at published
-    widths through `pack_sweep` at ``n_shards=4``, row-split on the mesh,
-    and on the mesh at ``n_shards=2`` (SA-S); 6a's BRAM18-only group at
-    ``n_shards=3`` and 3 BRAM18 + 3 U50 problems on the mesh (GA-NFD); the
+    """Sharded fleets on the card: 6a's BRAM18-only group at published
+    widths through `pack_sweep` at ``n_shards=4`` and on the mesh at
+    ``n_shards=2``, 6a's 50-position fleet row-split on the mesh (SA-S);
+    the BRAM18-only group at ``n_shards=3`` and 3 BRAM18 + 3 U50 problems on the mesh (GA-NFD); the
     default-lineup portfolio on the mesh, fused (K5 row-split), on
     RN152-W1A2 and @U50; a 5-island SA-S portfolio at ``n_shards=2`` and
     1; a sharded SA sweep and the split portfolio killed after snapshot 2
@@ -2262,36 +2293,39 @@ def shard_path(device, dse, portfolio) -> dict:
                           n_shards=sw.params["n_shards"])
 
     every = list(range(len(probs)))
+    # the BRAM18-only group: one cost-model group, so a sharded sweep
+    # advances one set of sub-fleets, not two
+    bram18 = dse_bram18(labels)
     profiled = {}
 
-    def sa_sweep(profiled_run=False, **kw):
+    def sa_sweep(sub, profiled_run=False, **kw):
         if not profiled_run:
-            return sweep(every, "sa-s", **kw)
+            return sweep(sub, "sa-s", **kw)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sw = sweep(every, "sa-s", **kw)
+            sw = sweep(sub, "sa-s", **kw)
         profiled["n_shards"] = prof, sw
         return sw
 
     try:
-        # --- SA-S, all 50 positions; the n_shards=4 sweep under
-        # torch.profiler (the device's busy share)
-        for label, kw, per_call in (
-                (f"sa-s n_shards={SHARD_SA} (profiled)",
+        # --- SA-S: the n_shards=4 sweep under torch.profiler (the device's
+        # busy share) and the pinned sub-fleets on the BRAM18-only group,
+        # the row split on all 50 positions
+        for label, sub, kw, per_call in (
+                (f"sa-s bram18 n_shards={SHARD_SA} (profiled)", bram18,
                  dict(n_shards=SHARD_SA, profiled_run=True), 1),
-                ("sa-s mesh", dict(mesh=mesh), k),
-                (f"sa-s mesh n_shards={SHARD_MESH_SA}", dict(mesh=mesh, n_shards=SHARD_MESH_SA),
-                 1)):
-            sw = run(label, lambda kw=kw: sa_sweep(**kw), SHARD_KERNELS["sa-s"], per_call)
-            check_records(sw, every, "sa-s", label)
-            if sweep_key(sw) != dse["records"]["sa-s"]:
+                ("sa-s mesh", every, dict(mesh=mesh), k),
+                (f"sa-s bram18 mesh n_shards={SHARD_MESH_SA}", bram18,
+                 dict(mesh=mesh, n_shards=SHARD_MESH_SA), 1)):
+            own = SHARD_KERNELS["sa-s"][:1] if sub is bram18 else SHARD_KERNELS["sa-s"]
+            sw = run(label, lambda sub=sub, kw=kw: sa_sweep(sub, **kw), own, per_call)
+            check_records(sw, sub, "sa-s", label)
+            if sub is every and sweep_key(sw) != dse["records"]["sa-s"]:
                 raise AssertionError(f"shard {label}: the sweep differs from phase 6a's")
         prof, sw = profiled["n_shards"]
-        key = f"shard sa-s n_shards={SHARD_SA} x{len(probs)}"
+        key = f"shard sa-s bram18 n_shards={SHARD_SA} x{len(bram18)}"
         out["profile"] = device_share(prof, sw.wall_time_s * 1e6, key,
                                       f"{sw.n_solved} candidates")
         # --- GA-NFD: 6a's BRAM18-only group split, and 3 + 3 on the mesh
-        bram18 = [i for i, (_, dev, _) in enumerate(labels[:len(labels) - len(DSE_RENAMED)])
-                  if dev is None]
         label = f"ga-nfd bram18 n_shards={SHARD_GA}"
         sw = run(label, lambda: sweep(bram18, "ga-nfd", n_shards=SHARD_GA),
                  SHARD_KERNELS["ga-nfd bram18"], 1)
@@ -3546,6 +3580,73 @@ def baselines_and_dryrun(device) -> tuple[dict, dict]:
                            seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 6h
+# Cold threads: `tools/cold_threads_torch.py` in fresh child processes,
+# all started together, each with the interpreter's switch interval at
+# 1 us and the threaded entry points as its first calls into the port
+# (K1-K5 loaded and first launched from island, shard and side-lane
+# threads); each child's own timeout catches a hang
+COLD_CHILDREN = 4
+COLD_TIMEOUT_S = 300
+# every kernel of the threaded paths, in every child
+COLD_KERNELS = tuple(n for n in KERNELS if n != GATHER)
+
+
+def cold_path(device) -> dict:
+    """Phase 6h: the cold children's records of (b) and (c) must equal the
+    same calls on ``python``, computed here; each child must exit 0 within
+    its timeout and launch each of K1-K5 and no K6.  Returns the children's
+    launch counts summed, their seconds and their calls' seconds."""
+    import repro_torch.core as rc
+
+    import cold_threads_torch as cold
+
+    t_phase = time.perf_counter()
+    want = cold.python_records(rc, device)
+    cmd = [sys.executable, str(ROOT / "tools" / "cold_threads_torch.py"),
+           "--device", device.type]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(COLD_CHILDREN)]
+    done = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=COLD_TIMEOUT_S)
+            done.append((p.returncode, so, se, time.perf_counter() - t))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    launches = {name: 0 for name in KERNELS}
+    runs = []
+    for i, (rc_child, so, se, seconds) in enumerate(done):
+        if rc_child != 0:
+            raise AssertionError(f"cold child {i}: exit {rc_child}\n{so}\n{se}")
+        got = json.loads(so.strip().splitlines()[-1])
+        for label, rec in want.items():
+            if got[label] != rec:
+                raise AssertionError(f"cold child {i}: {label} differs from python")
+        total = got["launches"]["total"]
+        if any(total[n] <= 0 for n in COLD_KERNELS) or total[GATHER]:
+            raise AssertionError(f"cold child {i}: launches {total}, expected each of "
+                                 f"{COLD_KERNELS} and no {GATHER}")
+        for name, v in total.items():
+            launches[name] += v
+        runs.append(dict(seconds=seconds, calls=got["seconds"], launches=total,
+                         by_call=got["launches"], threads_cost=got["threads_cost"],
+                         threads_rounds=got["threads_rounds"]))
+        ran = {n: v for n, v in total.items() if v}
+        print(f"[cold] child {i}: exit 0 after {seconds:.1f}s; calls "
+              f"{json.dumps({k: round(v, 3) for k, v in got['seconds'].items()})}; "
+              f"launches {json.dumps(ran)}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[cold] {COLD_CHILDREN} children at once: every sweep and portfolio record "
+          f"equal to python's; launches {json.dumps(launches)}; phase 6h took "
+          f"{seconds:.1f}s")
+    return dict(launches=launches, runs=runs, seconds=seconds)
+
+
 # ----------------------------------------------------------------- phase 7
 def time_events(fn, n: int, warm: int = 5) -> float:
     """Milliseconds per ``fn()`` call, CUDA events around ``n`` calls."""
@@ -4539,6 +4640,7 @@ def main() -> int:
         errs[name] = max(errs[name], e)
     trained = train_path(device)
     baselines, dry = baselines_and_dryrun(device)
+    cold = cold_path(device)
     timings = kernel_timings(inputs, device, memory["k1_input"], probe_lib)
     dse_shapes = dse_shape_timings(dse["cases"], device)
     sa_shapes = sa_shape_timings(inputs, device, probe_lib)
@@ -4555,7 +4657,8 @@ def main() -> int:
                    "resume": resumed["launches"][name], "serve": serve["launches"][name],
                    "sharded": shard["launches"][name], "lm": lm["launches"][name],
                    "training": trained["launches"][name],
-                   "baselines": baselines["launches"][name], "dryrun": dry["launches"][name]}
+                   "baselines": baselines["launches"][name], "dryrun": dry["launches"][name],
+                   "cold": cold["launches"][name]}
         if name == GATHER:
             # at the largest hymba bank; every shape timed is in `timings`
             tm = memory["timings"]["largest hymba bank"]
@@ -4599,6 +4702,7 @@ def main() -> int:
     print(f"[train] {json.dumps(trained['summary'])}")
     print(f"[baselines] {json.dumps({k: baselines[k] for k in ('runs', 'threads')})}")
     print(f"[dryrun] {json.dumps({'cells': dry['cells'], 'host': dry['host']['readings']})}")
+    print(f"[cold] {json.dumps(cold['runs'])}")
     print(f"[profile] {json.dumps(profiled)}")
     print(smi)
     print(json.dumps({"kernels": record}))

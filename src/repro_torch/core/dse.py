@@ -76,6 +76,14 @@ from .problem import (
     PackingResult,
     batch_group_key,
 )
+from .resume import (
+    SweepCheckpointer,
+    encode_block_state,
+    encode_ga_group,
+    group_digest,
+    merge_block_states,
+    sweep_config_key,
+)
 
 # algorithms whose batched lane exists (everything else runs serially)
 _SA_BATCHED = ("sa-s",)
@@ -314,8 +322,6 @@ def _solve_sa_group_sharded(
     ]
     gd = None
     if ck is not None:
-        from .resume import group_digest, merge_block_states
-
         gd = group_digest(gkeys)
         ck.restore_block_shards(gd, sts, packer.patience)
 
@@ -360,8 +366,6 @@ def _solve_sa_groups(
             # iteration barriers for durable snapshots.  Barrier segmentation
             # never changes trajectories, so results stay bit-identical to
             # the uncheckpointed lane.
-            from .resume import encode_block_state, group_digest
-
             gd = group_digest([keys[i] for i in group])
             st = packer._block_start(
                 probs, rngs, [[] for _ in group], backend, mesh=mesh
@@ -452,8 +456,6 @@ def _solve_ga_groups(
         if ck is None:
             drain_all(None)
         else:
-            from .resume import encode_ga_group, group_digest
-
             gd = group_digest([keys[i] for i in group])
             ck.restore_ga_group(gd, runs)
             while True:
@@ -668,8 +670,6 @@ def pack_sweep(
                       max_seconds, hyper)
     ck = None
     if checkpoint_dir is not None:
-        from .resume import SweepCheckpointer, sweep_config_key
-
         ck = SweepCheckpointer(
             checkpoint_dir, sweep_config_key(keys), every=checkpoint_every,
             resume=resume, on_checkpoint=on_checkpoint,

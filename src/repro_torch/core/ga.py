@@ -50,6 +50,10 @@ from typing import Sequence
 import numpy as np
 
 from ..device import check_backend, resolve_backend, resolve_device
+# imported here, on the importing thread, never first on an island or
+# shard thread (two threads importing kernel packages can deadlock on
+# their module locks); called through the module, so patches apply
+from ..kernels.binpack_fitness import ops as fitness_ops
 from .nfd import nfd_from_scratch, nfd_repack
 from .problem import (
     DEFAULT_INVENTORY_PENALTY,
@@ -628,9 +632,7 @@ def _population_totals(
     """Population totals of ``(..., NB)`` geometry under ``run``'s mode
     tables, as float64 holding exact integers; ``mesh`` row-shards the
     call."""
-    from ..kernels.binpack_fitness.ops import population_costs
-
-    totals = population_costs(
+    totals = fitness_ops.population_costs(
         W, H, modes=run.modes0, backend=backend, kinds=Km,
         kind_tables=run.kt, device=device, mesh=mesh,
     )

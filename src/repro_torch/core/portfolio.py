@@ -76,6 +76,10 @@ from typing import Sequence
 import numpy as np
 
 from ..device import resolve_device
+# imported here, on the importing thread, never first on an island or
+# shard thread (two threads importing kernel packages can deadlock on
+# their module locks); called through the module, so patches apply
+from ..kernels.binpack_portfolio_step import ops as portfolio_ops
 from .dse import _run_threads, _shard_devices, check_shards, shard_chunks
 from .ga import (
     GeneticPacker,
@@ -93,6 +97,7 @@ from .problem import (
     Solution,
     decode_chain_items,
 )
+from .resume import PortfolioCheckpointer, portfolio_config_key
 from .sa import SimulatedAnnealingPacker
 
 # default barrier spacing: SA iterations / GA generations between migrations
@@ -635,8 +640,6 @@ def _advance_fused(
     consumes only its own RNG stream in its own order, and the fused call
     returns exactly the separate calls' integers, so the trajectory is the
     unfused one.  Returns (fleet_progressed, ga_progressed)."""
-    from ..kernels.binpack_portfolio_step.ops import portfolio_step
-
     packer, st = fleet.packer, fleet.st  # fusing needs the fleet in one shard
     before = st.it
     gen = None if st.done else packer._block_gen(st, fleet_limit)
@@ -650,7 +653,7 @@ def _advance_fused(
             batch = batches[0]
             W, H, Km = stack_geometry([r for _, r, _ in batch])
             old_w, old_h, new_w, new_h, old_k, new_k = req
-            totals, d_e = portfolio_step(
+            totals, d_e = portfolio_ops.portfolio_step(
                 W, H, old_w, old_h, new_w, new_h,
                 modes=st.modes0, backend=st.backend,
                 kinds=Km, old_k=old_k, new_k=new_k,
@@ -686,6 +689,7 @@ def pack_portfolio(
     migration_every: int | None = None,
     intra_layer: bool = False,
     backend: str = "auto",
+    max_workers: int | None = None,
     sa_chains: int = 8,
     scheduler: str = "concurrent",
     fused: bool | None = None,
@@ -706,7 +710,8 @@ def pack_portfolio(
 
     The arguments are the reference's (`repro.core.pack_portfolio`), plus
     ``device`` (``None`` means ``"cuda"`` and raises where CUDA is not
-    available; pass ``"cpu"`` to run on the host).  The result is
+    available; pass ``"cpu"`` to run on the host); ``max_workers`` is
+    deprecated and ignored, as there.  The result is
     bit-identical to the reference's for the same arguments and iteration
     budgets: cost, packing, iterations, the trace's cost sequence and the
     ``barriers`` / ``migrations`` / ``strides`` / ``race`` params.
@@ -769,6 +774,14 @@ def pack_portfolio(
     """
     from .api import make_packer  # late import: api imports this module lazily
 
+    if max_workers is not None:
+        warnings.warn(
+            "pack_portfolio(max_workers=...) is deprecated and ignored: the "
+            "portfolio is fleet-native (no thread pool); use "
+            "pack_portfolio_threads for the legacy engine",
+            DeprecationWarning,
+            stacklevel=2,
+        )
     n_shards = check_shards(n_shards, mesh, device)
     device = resolve_device(device)
     if not auto and (race_grid is not None or race_budget is not None):
@@ -806,8 +819,6 @@ def pack_portfolio(
         )
     ck = None
     if checkpoint_dir is not None:
-        from .resume import PortfolioCheckpointer, portfolio_config_key
-
         ck = PortfolioCheckpointer(
             checkpoint_dir,
             portfolio_config_key(

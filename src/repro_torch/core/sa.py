@@ -59,6 +59,10 @@ from typing import Sequence
 import numpy as np
 
 from ..device import check_backend, resolve_backend, resolve_device
+# imported here, on the importing thread, never first on an island or
+# shard thread (two threads importing kernel packages can deadlock on
+# their module locks); called through the module, so patches apply
+from ..kernels.binpack_sa_step import ops as sa_ops
 from .ga import (
     apply_swap_moves,
     buffer_swap,
@@ -454,8 +458,6 @@ class SimulatedAnnealingPacker:
         return st
 
     def _single_run(self, st: _SingleChainRun, it_limit: int | None = None) -> None:
-        from ..kernels.binpack_sa_step.ops import sa_step_deltas
-
         limit = (
             self.max_iterations if it_limit is None
             else min(self.max_iterations, it_limit)
@@ -503,7 +505,7 @@ class SimulatedAnnealingPacker:
                     old_k[0, :k] = chain_k[0, tl]
                     new_k[0, :k] = sol.kinds[tl]
                 d_cost = int(
-                    sa_step_deltas(
+                    sa_ops.sa_step_deltas(
                         old_w, old_h, new_w, new_h, backend=backend,
                         old_k=old_k, new_k=new_k, kind_tables=kt, device=device,
                     )[0]
@@ -527,7 +529,7 @@ class SimulatedAnnealingPacker:
                 d_e = d_cost + lam * (ovf2 - st.ovf)
             else:
                 d_cost = int(
-                    sa_step_deltas(
+                    sa_ops.sa_step_deltas(
                         old_w, old_h, new_w, new_h, modes=modes0,
                         backend=backend, device=device,
                     )[0]
@@ -801,16 +803,14 @@ class SimulatedAnnealingPacker:
         ``st.device``, row-sharded over ``st.mesh`` (the portfolio's fused
         barrier answers the same requests through
         ``binpack_portfolio_step``)."""
-        from ..kernels.binpack_sa_step.ops import sa_step_deltas
-
         old_w, old_h, new_w, new_h, old_k, new_k = req
         if old_k is not None:
-            return sa_step_deltas(
+            return sa_ops.sa_step_deltas(
                 old_w, old_h, new_w, new_h, backend=st.backend,
                 old_k=old_k, new_k=new_k, kind_tables=st.kt,
                 device=st.device, mesh=st.mesh,
             )
-        return sa_step_deltas(
+        return sa_ops.sa_step_deltas(
             old_w, old_h, new_w, new_h, modes=st.modes0,
             backend=st.backend, device=st.device, mesh=st.mesh,
         )
@@ -828,8 +828,6 @@ class SimulatedAnnealingPacker:
         produces bit-identical trajectories.  Consumers must drain
         the generator to ``StopIteration`` so the rebound loop state is
         written back to ``st``."""
-        from ..kernels.binpack_sa_step.ops import metropolis_mask
-
         limit = (
             self.max_iterations if it_limit is None
             else min(self.max_iterations, it_limit)
@@ -1020,7 +1018,7 @@ class SimulatedAnnealingPacker:
             for j in np.flatnonzero(act_p):
                 lo = j * n_chains
                 u_metro[lo : lo + n_chains] = rngs[j].random(n_chains)
-            accept = metropolis_mask(d_tot, temps, u_metro) & active
+            accept = sa_ops.metropolis_mask(d_tot, temps, u_metro) & active
             # --- roll back rejected chains (reverse move order)
             reject = ~accept
             for m in range(n_moves - 1, -1, -1):

@@ -25,6 +25,7 @@ def test_port_sources_import_no_jax_and_no_reference():
         ROOT / "tools" / "serve_traffic_torch.py",
         ROOT / "tools" / "sweep_resume_torch.py",
         ROOT / "tools" / "portfolio_gate_torch.py",
+        ROOT / "tools" / "cold_threads_torch.py",
         ROOT / "examples" / "serve_packed_torch.py",
         ROOT / "examples" / "quickstart_torch.py",
         ROOT / "examples" / "dse_loop_torch.py",

@@ -14,6 +14,8 @@ Budgets are iteration counts, never wall clock.  Racing and the
 migration hooks are in ``test_torch_portfolio_racing.py``.
 """
 import functools
+import inspect
+import warnings
 
 import numpy as np
 import pytest
@@ -317,6 +319,41 @@ def test_argument_checks_match_reference():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port.pack_portfolio(prob)
+
+
+def test_max_workers_deprecated():
+    """``max_workers`` warns as the reference's does (``tests/test_portfolio
+    .py::test_max_workers_deprecated``) and is ignored, not handed to the
+    islands: the result equals the call without it."""
+    kw = dict(_KW, n_islands=1, seed=0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        want = ref.pack_portfolio(ref.get_problem("CNV-W1A1"), backend="python",
+                                  max_workers=2, **kw)
+    ref_msgs = [str(w.message) for w in caught
+                if issubclass(w.category, DeprecationWarning)]
+    assert ref_msgs
+    prob = port.get_problem("CNV-W1A1")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        r = port.pack_portfolio(prob, device="cpu", max_workers=2, **kw)
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, DeprecationWarning)]
+    assert msgs == ref_msgs
+    assert all(w.filename == __file__ for w in caught
+               if issubclass(w.category, DeprecationWarning))
+    r.solution.validate()
+    plain = port.pack_portfolio(prob, device="cpu", **kw)
+    assert _record(r) == _record(plain) == _record(want)
+    clock = ("barrier_seconds", "group_seconds")  # wall time, not parity
+    assert ({k: v for k, v in r.params.items() if k not in clock}
+            == {k: v for k, v in plain.params.items() if k not in clock})
+    # the reference's parameters, in its order and with its defaults (the
+    # port adds ``device``), so positional calls mean the same
+    want = inspect.signature(ref.pack_portfolio).parameters
+    got = inspect.signature(port.pack_portfolio).parameters
+    assert [p for p in got if p != "device"] == list(want)
+    assert all(got[n].default == want[n].default for n in want)
 
 
 def test_wallclock_truncation_warns_as_reference():
