@@ -1,0 +1,15 @@
+"""Share of the traced window in which no operation ran on the card.  The
+spans below only name the host's layers in the trace's idle gaps."""
+from perfbench.trace import idle_pct
+
+SPANS = {
+    "sweep.pack_sweep": "repro_torch.core.dse:pack_sweep",
+    "engines.sa.start": "repro_torch.core.sa:SimulatedAnnealingPacker._block_start",
+    "engines.sa.loop": "repro_torch.core.sa:SimulatedAnnealingPacker._block_run",
+    "engines.sa.finish": "repro_torch.core.sa:SimulatedAnnealingPacker._block_finish",
+    "ops.sa_step_deltas": "repro_torch.kernels.binpack_sa_step.ops:sa_step_deltas",
+}
+
+
+def read(run):
+    return idle_pct(run.trace)
