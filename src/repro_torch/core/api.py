@@ -5,6 +5,7 @@ import time
 
 import numpy as np
 
+from .. import obs
 from ..device import resolve_device
 from . import baselines
 from .dse import SweepResult, pack_sweep  # noqa: F401  (re-export)
@@ -147,63 +148,65 @@ def pack(
     bit-identical to ``repro.core.pack`` for the same seed and budget.
 
     ``device`` defaults to ``"cuda"`` for every algorithm and raises where
-    CUDA is not available; pass ``device="cpu"`` to run on the host.
+    CUDA is not available; pass ``device="cpu"`` to run on the host.  The
+    call is the entry span ``api.pack`` (`repro_torch.obs`).
     """
-    device = resolve_device(device)
-    algorithm = algorithm.lower()
-    if algorithm in ("ga-nfd", "ga-s", "sa-nfd", "sa-s"):
-        packer = make_packer(
-            algorithm,
-            seed=seed,
-            max_seconds=max_seconds,
-            intra_layer=intra_layer,
-            backend=backend,
-            device=device,
-            **hyper,
-        )
-        return packer.pack(prob)
-    if algorithm == "portfolio":
-        # the fleet-native island portfolio: deterministic per seed, with
-        # migration at iteration/generation barriers
-        from .portfolio import pack_portfolio
+    with obs.span("api.pack", entry=True):
+        device = resolve_device(device)
+        algorithm = algorithm.lower()
+        if algorithm in ("ga-nfd", "ga-s", "sa-nfd", "sa-s"):
+            packer = make_packer(
+                algorithm,
+                seed=seed,
+                max_seconds=max_seconds,
+                intra_layer=intra_layer,
+                backend=backend,
+                device=device,
+                **hyper,
+            )
+            return packer.pack(prob)
+        if algorithm == "portfolio":
+            # the fleet-native island portfolio: deterministic per seed, with
+            # migration at iteration/generation barriers
+            from .portfolio import pack_portfolio
 
-        return pack_portfolio(
-            prob,
-            seed=seed,
-            max_seconds=max_seconds,
-            intra_layer=intra_layer,
-            backend=backend,
-            device=device,
-            **hyper,
-        )
+            return pack_portfolio(
+                prob,
+                seed=seed,
+                max_seconds=max_seconds,
+                intra_layer=intra_layer,
+                backend=backend,
+                device=device,
+                **hyper,
+            )
 
-    # deterministic one-shot heuristics
-    t0 = time.perf_counter()
-    if algorithm == "nfd":
-        sol = nfd_from_scratch(
-            prob,
-            np.random.default_rng(seed),
-            p_adm_w=hyper.get("p_adm_w", 0.0),
-            p_adm_h=hyper.get("p_adm_h", 0.1),
-            intra_layer=intra_layer,
+        # deterministic one-shot heuristics
+        t0 = time.perf_counter()
+        if algorithm == "nfd":
+            sol = nfd_from_scratch(
+                prob,
+                np.random.default_rng(seed),
+                p_adm_w=hyper.get("p_adm_w", 0.0),
+                p_adm_h=hyper.get("p_adm_h", 0.1),
+                intra_layer=intra_layer,
+            )
+        elif algorithm == "ffd":
+            sol = baselines.first_fit_decreasing(prob, intra_layer=intra_layer)
+        elif algorithm == "next-fit":
+            sol = baselines.next_fit(prob)
+        elif algorithm == "baseline":
+            sol = baselines.singleton(prob)
+        else:
+            raise ValueError(f"unknown algorithm {algorithm!r}; options: {ALGORITHMS}")
+        wall = time.perf_counter() - t0
+        cost = sol.cost()
+        return PackingResult(
+            solution=sol,
+            cost=cost,
+            efficiency=sol.efficiency(),
+            wall_time_s=wall,
+            algorithm=algorithm + ("-intra" if intra_layer else ""),
+            trace=[(wall, cost)],
+            iterations=1,
+            params=dict(seed=seed, **hyper),
         )
-    elif algorithm == "ffd":
-        sol = baselines.first_fit_decreasing(prob, intra_layer=intra_layer)
-    elif algorithm == "next-fit":
-        sol = baselines.next_fit(prob)
-    elif algorithm == "baseline":
-        sol = baselines.singleton(prob)
-    else:
-        raise ValueError(f"unknown algorithm {algorithm!r}; options: {ALGORITHMS}")
-    wall = time.perf_counter() - t0
-    cost = sol.cost()
-    return PackingResult(
-        solution=sol,
-        cost=cost,
-        efficiency=sol.efficiency(),
-        wall_time_s=wall,
-        algorithm=algorithm + ("-intra" if intra_layer else ""),
-        trace=[(wall, cost)],
-        iterations=1,
-        params=dict(seed=seed, **hyper),
-    )

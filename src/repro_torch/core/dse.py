@@ -63,6 +63,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels.probshard import mesh_devices
 from .ga import (
@@ -655,71 +656,74 @@ def pack_sweep(
       ``cuda``) only; ``python`` and the serial lane ignore it.  On one
       card, ``SweepMesh([cuda:0] * k)`` runs k logical shards of it: the
       row split and the pinning, not a scaling across cards.
+
+    The call is the entry span ``dse.sweep`` (`repro_torch.obs`).
     """
-    problems = list(problems)
-    if not problems:
-        raise ValueError("pack_sweep needs at least one problem")
-    algorithm = algorithm.lower()
-    seeds = _seed_list(problems, seed, seeds)
-    hyper = normalize_hyper(algorithm, hyper)
-    n_shards = check_shards(n_shards, mesh, device)
-    device = resolve_device(device)
-    t_start = time.perf_counter()
+    with obs.span("dse.sweep", entry=True):
+        problems = list(problems)
+        if not problems:
+            raise ValueError("pack_sweep needs at least one problem")
+        algorithm = algorithm.lower()
+        seeds = _seed_list(problems, seed, seeds)
+        hyper = normalize_hyper(algorithm, hyper)
+        n_shards = check_shards(n_shards, mesh, device)
+        device = resolve_device(device)
+        t_start = time.perf_counter()
 
-    keys = _task_keys(problems, algorithm, seeds, intra_layer, backend,
-                      max_seconds, hyper)
-    ck = None
-    if checkpoint_dir is not None:
-        ck = SweepCheckpointer(
-            checkpoint_dir, sweep_config_key(keys), every=checkpoint_every,
-            resume=resume, on_checkpoint=on_checkpoint,
-        )
-    results_by_key: dict[tuple, PackingResult] = {}
-    if cache is not None:
-        for k in set(keys):
-            if k in cache:
-                results_by_key[k] = cache[k]
-    if ck is not None:
-        # candidates completed before the crash are served, not re-solved
+        keys = _task_keys(problems, algorithm, seeds, intra_layer, backend,
+                          max_seconds, hyper)
+        ck = None
+        if checkpoint_dir is not None:
+            ck = SweepCheckpointer(
+                checkpoint_dir, sweep_config_key(keys), every=checkpoint_every,
+                resume=resume, on_checkpoint=on_checkpoint,
+            )
+        results_by_key: dict[tuple, PackingResult] = {}
+        if cache is not None:
+            for k in set(keys):
+                if k in cache:
+                    results_by_key[k] = cache[k]
+        if ck is not None:
+            # candidates completed before the crash are served, not re-solved
+            for i, k in enumerate(keys):
+                if k not in results_by_key:
+                    prev = ck.result_for(k, problems[i])
+                    if prev is not None:
+                        results_by_key[k] = prev
+        rep: dict[tuple, int] = {}  # first position of each unsolved unique task
         for i, k in enumerate(keys):
-            if k not in results_by_key:
-                prev = ck.result_for(k, problems[i])
-                if prev is not None:
-                    results_by_key[k] = prev
-    rep: dict[tuple, int] = {}  # first position of each unsolved unique task
-    for i, k in enumerate(keys):
-        if k not in results_by_key and k not in rep:
-            rep[k] = i
-    fresh = tuple(sorted(rep.values()))
-    cache_hits = len(problems) - len(fresh)
+            if k not in results_by_key and k not in rep:
+                rep[k] = i
+        fresh = tuple(sorted(rep.values()))
+        cache_hits = len(problems) - len(fresh)
 
-    # --- lane dispatch for the unsolved representatives
-    n_groups = 0
-    if rep:
-        solved, n_groups = _solve_positions(
-            rep.values(), problems, seeds, algorithm, seed=seed,
-            max_seconds=max_seconds, intra_layer=intra_layer,
-            backend=backend, device=device, keys=keys, ck=ck,
-            n_shards=n_shards, mesh=mesh, hyper=hyper,
+        # --- lane dispatch for the unsolved representatives
+        n_groups = 0
+        if rep:
+            solved, n_groups = _solve_positions(
+                rep.values(), problems, seeds, algorithm, seed=seed,
+                max_seconds=max_seconds, intra_layer=intra_layer,
+                backend=backend, device=device, keys=keys, ck=ck,
+                n_shards=n_shards, mesh=mesh, hyper=hyper,
+            )
+            for i, res in solved.items():
+                results_by_key[keys[i]] = res
+                if cache is not None:
+                    cache[keys[i]] = res
+
+        return SweepResult(
+            results=[results_by_key[k] for k in keys],
+            problems=problems,
+            wall_time_s=time.perf_counter() - t_start,
+            n_solved=len(fresh),
+            cache_hits=cache_hits,
+            n_groups=n_groups,
+            algorithm=algorithm,
+            fresh=fresh,
+            params=dict(
+                solved=len(fresh),
+                cache_hits=len(set(keys)) - len(fresh),
+                dedup_hits=len(problems) - len(set(keys)),
+                n_shards=n_shards,
+            ),
         )
-        for i, res in solved.items():
-            results_by_key[keys[i]] = res
-            if cache is not None:
-                cache[keys[i]] = res
-
-    return SweepResult(
-        results=[results_by_key[k] for k in keys],
-        problems=problems,
-        wall_time_s=time.perf_counter() - t_start,
-        n_solved=len(fresh),
-        cache_hits=cache_hits,
-        n_groups=n_groups,
-        algorithm=algorithm,
-        fresh=fresh,
-        params=dict(
-            solved=len(fresh),
-            cache_hits=len(set(keys)) - len(fresh),
-            dedup_hits=len(problems) - len(set(keys)),
-            n_shards=n_shards,
-        ),
-    )

@@ -31,7 +31,9 @@ The generation loop is factored into phase helpers over a `_GARun` state
 (`_start_run` / `_mutation_phase` / `_apply_costs` / `_track_best` /
 `_tournament`), as in the reference; the ``lockstep_*`` functions drive
 several runs together and stack their fitness into one leading-axis call
-(the island portfolio, `core.portfolio`).
+(the island portfolio, `core.portfolio`).  Each phase is a span
+(`repro_torch.obs`): ``ga.start``, ``ga.eval``, ``ga.mutation``,
+``ga.apply``, ``ga.best``, ``ga.selection``, ``ga.finish``.
 
 Heterogeneous OCM problems (``PackingProblem(ocm=...)``) add a RAM-kind
 dimension: with probability ``p_kind`` a mutation reassigns random bins'
@@ -49,6 +51,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import obs
 from ..device import check_backend, resolve_backend, resolve_device
 # imported here, on the importing thread, never first on an island or
 # shard thread (two threads importing kernel packages can deadlock on
@@ -351,6 +354,7 @@ class GeneticPacker:
     ) -> "_GARun":
         """Build one problem's population + evaluation matrices (no RNG
         draws beyond the population init itself)."""
+        tok = obs.begin("ga.start")
         run = _GARun()
         run.prob = prob
         run.rng = rng
@@ -400,6 +404,7 @@ class GeneticPacker:
         if run.ovfs is not None:
             for i, s in enumerate(pop):
                 run.ovfs[i] = s.inventory_overflow()
+        obs.end(tok)
         return run
 
     def _eval_init(self, run: "_GARun", totals=None) -> None:
@@ -409,6 +414,7 @@ class GeneticPacker:
         lockstep lane evaluates every problem's population in one stacked
         call); otherwise the batched backends make their own call.
         ``legacy`` recomputes every cost from scratch (`cost_full`)."""
+        tok = obs.begin("ga.eval")
         if run.batched:
             costs = (
                 self._batched_costs(run) if totals is None
@@ -444,12 +450,14 @@ class GeneticPacker:
                       run.best_sel if run.hetero else run.best_cost)]
         run.stale = 0
         run.gen = 0
+        obs.end(tok)
 
     def _mutation_phase(self, run: "_GARun") -> list[int]:
         """One generation's mutations (mutated individuals are fresh objects;
         unmutated ones may be shared references from selection, never mutated
         in place).  Returns the mutated indices; on the batched path their
         kernel costs are applied afterwards via `_apply_costs`."""
+        tok = obs.begin("ga.mutation")
         mutated: list[int] = []
         for i in range(self.n_pop):
             if run.rng.random() < self.p_mut:
@@ -476,9 +484,11 @@ class GeneticPacker:
                     run.fits[i] = self._fitness_legacy(
                         run.pop[i], run.costs[i], run.hetero
                     )
+        obs.end(tok)
         return mutated
 
     def _apply_costs(self, run: "_GARun", totals, mutated: list[int]) -> None:
+        tok = obs.begin("ga.apply")
         for i in mutated:
             run.costs[i] = totals[i]
             run.fits[i] = fitness(
@@ -486,9 +496,11 @@ class GeneticPacker:
                 inventory_penalty=run.inv_pen,
                 overflow=None if run.ovfs is None else run.ovfs[i],
             )
+        obs.end(tok)
 
     def _track_best(self, run: "_GARun") -> None:
         # --- track best (penalized on heterogeneous problems)
+        tok = obs.begin("ga.best")
         sel = (
             run.costs
             if run.ovfs is None
@@ -504,9 +516,11 @@ class GeneticPacker:
             run.stale = 0
         else:
             run.stale += 1
+        obs.end(tok)
 
     def _tournament(self, run: "_GARun") -> None:
         # --- tournament selection (with replacement) + elitism
+        tok = obs.begin("ga.selection")
         idx = run.rng.integers(self.n_pop, size=(self.n_pop, self.n_tour))
         winners = idx[np.arange(self.n_pop), np.argmin(run.fits[idx], axis=1)]
         winners[0] = int(np.argmin(run.fits))  # elitism: best survives
@@ -520,8 +534,10 @@ class GeneticPacker:
             run.H = run.H[winners]
             if run.Km is not None:
                 run.Km = run.Km[winners]
+        obs.end(tok)
 
     def _finish_run(self, run: "_GARun") -> PackingResult:
+        tok = obs.begin("ga.finish")
         wall = time.perf_counter() - run.t0
         run.trace.append((wall, run.best_sel if run.hetero else run.best_cost))
         self.last_population_ = run.pop
@@ -531,7 +547,7 @@ class GeneticPacker:
             if run.hetero
             else {}
         )
-        return PackingResult(
+        result = PackingResult(
             solution=run.best,
             cost=run.best_cost,
             efficiency=run.best.efficiency(),
@@ -550,6 +566,8 @@ class GeneticPacker:
                 **extra,
             ),
         )
+        obs.end(tok)
+        return result
 
     # ------------------------------------------------- portfolio barrier hooks
     def _migrate_in(self, run: "_GARun", sol: Solution) -> bool:

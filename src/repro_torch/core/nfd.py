@@ -12,11 +12,15 @@ As a *mutation operator* inside GA/SA the repack is kept local: only the
 decomposed per call, so one mutation is a small, cheap move rather than a
 global restart.  A full-problem pass (``nfd_from_scratch``) is used for
 population initialization.
+
+Spans (`repro_torch.obs`): ``nfd.scratch`` (a full pass), ``nfd.kinds``
+(its inventory-aware kind assignment), ``nfd.repack`` (a local repack).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import obs
 from .problem import PackingProblem, Solution, greedy_assign_kinds
 
 
@@ -111,6 +115,15 @@ def nfd_repack(
     ``use_cache=False`` reproduces the seed's from-scratch evaluation
     behaviour (same RNG stream, same result) for benchmarking.
     """
+    tok = obs.begin("nfd.repack")
+    child = _repack(sol, rng, threshold, p_adm_w, p_adm_h, intra_layer, extra_frac,
+                    max_bins, use_cache)
+    obs.end(tok)
+    return child
+
+
+def _repack(sol, rng, threshold, p_adm_w, p_adm_h, intra_layer, extra_frac, max_bins,
+            use_cache) -> Solution:
     prob = sol.problem
     mask = select_repack_bins(
         sol, rng, threshold, max_bins, extra_frac, use_cache=use_cache
@@ -168,6 +181,7 @@ def nfd_from_scratch(
     within a width class) — a width-aware seeding that the admission rule
     then exploits; initial populations mix both orderings for diversity.
     """
+    tok = obs.begin("nfd.scratch")
     order = rng.permutation(prob.n)
     if sort_by_width:
         order = order[np.argsort(prob.widths[order], kind="stable")]
@@ -181,4 +195,8 @@ def nfd_from_scratch(
     )
     # heterogeneous devices: start from an inventory-feasible kind lane
     # (deterministic, no RNG draws; no-op on single-kind problems)
-    return greedy_assign_kinds(sol)
+    kinds = obs.begin("nfd.kinds")
+    sol = greedy_assign_kinds(sol)
+    obs.end(kinds)
+    obs.end(tok)
+    return sol

@@ -58,6 +58,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import obs
 from ..device import check_backend, resolve_backend, resolve_device
 # imported here, on the importing thread, never first on an island or
 # shard thread (two threads importing kernel packages can deadlock on
@@ -688,7 +689,10 @@ class SimulatedAnnealingPacker:
         ``self.device``) is the device this fleet's calls go to, so the
         shards of one packer, advanced on threads, each keep their own.
         Both are start-derived constants, never serialized: a snapshot may
-        restore onto another mesh or shard count."""
+        restore onto another mesh or shard count.  Spans: ``sa.start`` (the
+        whole start, the chains' NFD passes in it) and ``sa.encode`` (the
+        chains' encoding)."""
+        tok = obs.begin("sa.start")
         st = _BlockState()
         st.mesh = mesh if backend in ("torch", "cuda") else None
         st.device = self.device if device is None else device
@@ -726,6 +730,7 @@ class SimulatedAnnealingPacker:
                 for c in range(len(mine), n_chains)
             ]
             sols.extend(mine)
+        enc = obs.begin("sa.encode")
         st.items, st.counts = encode_chain_items(sols, st.cap_max, n_slots=n_slots)
         st.bw, st.bh, st.live = encode_chain_geometry(sols, st.items.shape[1])
         st.costs = np.asarray([s.cost() for s in sols], dtype=np.int64)
@@ -750,6 +755,7 @@ class SimulatedAnnealingPacker:
             st.bk = None
             st.UK = None
             st.pcosts = st.costs
+        obs.end(enc)
 
         st.best_pcosts = st.pcosts.copy()  # per-chain best (drives patience)
         st.poff = np.arange(n_probs) * n_chains
@@ -781,6 +787,7 @@ class SimulatedAnnealingPacker:
         st.it = 0
         st.done = False
         st.frozen = False
+        obs.end(tok)
         return st
 
     def _block_run(self, st: _BlockState, it_limit: int | None = None) -> None:
@@ -827,7 +834,10 @@ class SimulatedAnnealingPacker:
         inside, so every consumer advances the *same* loop body and
         produces bit-identical trajectories.  Consumers must drain
         the generator to ``StopIteration`` so the rebound loop state is
-        written back to ``st``."""
+        written back to ``st``.  A step is three spans (`repro_torch.obs`),
+        each closed before the ``yield``: ``sa.propose`` (which chains are
+        live, the draws and the moves), ``sa.gather`` (the touched slots'
+        geometry), ``sa.accept`` (everything after the delta call)."""
         limit = (
             self.max_iterations if it_limit is None
             else min(self.max_iterations, it_limit)
@@ -872,9 +882,11 @@ class SimulatedAnnealingPacker:
             if (it & 0xFF) == 0 and time.perf_counter() - t_start > self.max_seconds:
                 st.done = True
                 break
+            tok = obs.begin("sa.propose")
             active = stale < self.patience
             act_p = active.reshape(n_probs, n_chains).any(axis=1)
             if not act_p.any():
+                obs.end(tok)
                 st.frozen = True
                 st.done = True
                 break
@@ -977,7 +989,10 @@ class SimulatedAnnealingPacker:
                     entry_ok[:, a] &= ~(
                         entry_ok[:, b] & (tslots[:, a] == tslots[:, b])
                     )
-            # --- fused delta-cost step over every chain of every problem
+            obs.end(tok)
+            # --- fused delta-cost step over every chain of every problem:
+            # the touched slots' geometry before and after
+            tok = obs.begin("sa.gather")
             sel = np.where(entry_ok, tslots, 0)
             rows = ri[:, None]
             old_w = np.where(entry_ok, bw[rows, sel], 0).astype(np.int32)
@@ -993,7 +1008,9 @@ class SimulatedAnnealingPacker:
             if hetero:
                 old_k = np.where(entry_ok, bk[rows, sel], 0).astype(np.int32)
                 new_k = np.where(entry_ok, bk_new[rows, sel], 0).astype(np.int32)
+                obs.end(tok)
                 d_e = yield (old_w, old_h, new_w, new_h, old_k, new_k)
+                tok = obs.begin("sa.accept")
                 if any_bounded:
                     # inventory-penalty delta, vectorized over all rows: the
                     # per-kind primitive usage change of the touched slots
@@ -1011,7 +1028,9 @@ class SimulatedAnnealingPacker:
                     dUK = None  # unbounded inventory never overflows
                     d_tot = d_e
             else:
+                obs.end(tok)
                 d_e = yield (old_w, old_h, new_w, new_h, None, None)
+                tok = obs.begin("sa.accept")
                 d_tot = d_e
             # --- Metropolis acceptance: per-problem draws, one batched rule
             temps = t0s / (1.0 + self.rc * it)
@@ -1102,6 +1121,7 @@ class SimulatedAnnealingPacker:
                 if hetero:
                     bk = np.take_along_axis(bk, order, 1)
                 live = (counts > 0).sum(1)
+            obs.end(tok)
             it += 1
         # --- write the rebound loop state back (in-place arrays already land
         # in st; these are the names the loop rebinds)
@@ -1114,6 +1134,7 @@ class SimulatedAnnealingPacker:
             st.done = True
 
     def _block_finish(self, st: _BlockState) -> list[_BlockOut]:
+        tok = obs.begin("sa.finish")
         wall = time.perf_counter() - st.t_start
         hetero, n_chains = st.hetero, self.n_chains
         outs: list[_BlockOut] = []
@@ -1133,6 +1154,7 @@ class SimulatedAnnealingPacker:
                 rows=(st.probs[j], st.items[lo:hi], st.counts[lo:hi],
                       st.bk[lo:hi] if hetero else None, st.pcosts[lo:hi]),
             ))
+        obs.end(tok)
         return outs
 
     # ------------------------------------------------- portfolio barrier hooks

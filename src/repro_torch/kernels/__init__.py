@@ -4,10 +4,12 @@ version: `binpack_fitness` (K1 / K2, GA fitness), `binpack_sa_step`
 for the island portfolio's fused barriers) and `packed_gather` (K6, the
 fused read of a packed parameter bank).  `build` compiles ``csrc/`` at
 first use."""
+from .. import obs
 
 
 def kernel_wrappers() -> tuple:
-    """The CUDA kernel wrappers, each counting its launches."""
+    """The CUDA kernel wrappers, each counting its launches in the counter
+    ``launch.<name>`` (`repro_torch.obs`)."""
     from .binpack_fitness import binpack_fitness_cuda, binpack_fitness_kinds_cuda
     from .binpack_portfolio_step import portfolio_step_cuda, portfolio_step_kinds_cuda
     from .binpack_sa_step import sa_step_deltas_cuda, sa_step_deltas_kinds_cuda
@@ -20,9 +22,8 @@ def kernel_wrappers() -> tuple:
 
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel wrapper since the last `reset_launch_counts`."""
-    return {f.__name__: f.launches for f in kernel_wrappers()}
+    return {f.__name__: obs.counter("launch." + f.__name__) for f in kernel_wrappers()}
 
 
 def reset_launch_counts() -> None:
-    for f in kernel_wrappers():
-        f.launches = 0
+    obs.reset_counters(["launch." + f.__name__ for f in kernel_wrappers()])

@@ -6,7 +6,8 @@
 ``kernels/csrc/binpack_fitness.cu``.  Both take ``(P, NB)`` int32 planes and
 return the ``(P,)`` int64 per-row totals.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor, and only a CPU tensor, takes the plain
-version in ``ref.py``.  Each wrapper counts its launches in ``.launches``.
+version in ``ref.py``.  Each wrapper counts its launches
+(`build.count_launch`, read with `kernels.launch_counts`).
 The by-value table argument (``build.FitnessTables``: each divisor as a
 magic number and a shift) is built once per distinct table and cached.
 
@@ -50,9 +51,6 @@ def binpack_fitness_cuda(
     return out
 
 
-binpack_fitness_cuda.launches = 0
-
-
 def binpack_fitness_kinds_cuda(
     widths: torch.Tensor, heights: torch.Tensor, kinds: torch.Tensor, kind_tables
 ) -> torch.Tensor:
@@ -75,6 +73,3 @@ def binpack_fitness_kinds_cuda(
     )
     count_launch(binpack_fitness_kinds_cuda)
     return out
-
-
-binpack_fitness_kinds_cuda.launches = 0

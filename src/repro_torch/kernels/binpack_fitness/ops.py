@@ -15,6 +15,9 @@ back with one ``.cpu()`` copy.  Backends:
 Heterogeneous OCM problems pass a parallel ``kinds`` matrix plus the
 problem's ``kind_tables`` (``((weight, modes), ...)`` per RAM kind).
 
+The kernel (or plain version) call is the span ``ops.launch``
+(`repro_torch.obs`), inside the call's ``ops.call`` (`kernels/probshard.py`).
+
 ``mesh`` (a `launch.mesh.SweepMesh`) row-shards a call: the rows are
 zero-padded to a multiple of the mesh size, each mesh device stages and
 costs its contiguous block, and the totals come back bit-identical to the
@@ -30,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import obs
 from ..probshard import run_rows
 from ..staging import stage
 from .kernel import binpack_fitness_cuda, binpack_fitness_kinds_cuda
@@ -72,15 +76,22 @@ def population_costs(
 
     def body(dev, *planes) -> torch.Tensor:
         """The (R,) int64 totals of one block, on ``dev`` (not fetched)."""
+        staged = stage(planes, dev)
+        tok = obs.begin("ops.launch")
         if kinds is not None:
-            w, h, k = stage(planes, dev).unbind(0)
+            w, h, k = staged.unbind(0)
             if backend == "cuda":
-                return binpack_fitness_kinds_cuda(w, h, k, kind_tables)
-            return binpack_fitness_kinds_ref(w, h, k, kind_tables).sum(dim=1)
-        w, h = stage(planes, dev).unbind(0)
-        if backend == "cuda":
-            return binpack_fitness_cuda(w, h, modes)
-        return binpack_fitness_ref(w, h, modes).sum(dim=1)
+                out = binpack_fitness_kinds_cuda(w, h, k, kind_tables)
+            else:
+                out = binpack_fitness_kinds_ref(w, h, k, kind_tables).sum(dim=1)
+        else:
+            w, h = staged.unbind(0)
+            if backend == "cuda":
+                out = binpack_fitness_cuda(w, h, modes)
+            else:
+                out = binpack_fitness_ref(w, h, modes).sum(dim=1)
+        obs.end(tok)
+        return out
 
     totals = run_rows(body, planes, device, mesh)
     return totals.reshape(lead)

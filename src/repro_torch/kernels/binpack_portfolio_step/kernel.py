@@ -10,8 +10,9 @@ one ``(rows + C,)`` tensor, which ``portfolio_step_joined_cuda`` /
 ``portfolio_step_kinds_joined_cuda`` return whole, so the ops layer fetches
 both halves with one copy.  A CUDA tensor launches the kernel (or raises);
 a CPU tensor, and only a CPU tensor, takes the plain version in ``ref.py``.
-Each kernel's launches, through either of its functions, are counted in
-``portfolio_step_cuda.launches`` / ``portfolio_step_kinds_cuda.launches``.
+Each kernel's launches, through either of its functions, are counted
+under ``portfolio_step_cuda`` / ``portfolio_step_kinds_cuda``
+(`build.count_launch`, read with `kernels.launch_counts`).
 
 Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
 0.  A slot with ``w > 0`` and ``h < 0`` is outside it: the kernel and the
@@ -94,9 +95,6 @@ def portfolio_step_cuda(
     return both[:widths.shape[0]], both[widths.shape[0]:]
 
 
-portfolio_step_cuda.launches = 0
-
-
 def portfolio_step_kinds_joined_cuda(
     widths, heights, kinds, old_w, old_h, old_k, new_w, new_h, new_k, kind_tables
 ) -> torch.Tensor:
@@ -118,6 +116,3 @@ def portfolio_step_kinds_cuda(
     both = portfolio_step_kinds_joined_cuda(widths, heights, kinds, old_w, old_h, old_k,
                                             new_w, new_h, new_k, kind_tables)
     return both[:widths.shape[0]], both[widths.shape[0]:]
-
-
-portfolio_step_kinds_cuda.launches = 0

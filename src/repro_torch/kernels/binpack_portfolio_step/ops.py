@@ -17,7 +17,10 @@ halves' planes to ``device`` in ONE copy from one pinned host buffer
 ``.cpu()`` of one ``(rows + C,)`` int64 tensor.  Every backend is exact
 integer arithmetic: the totals equal ``binpack_fitness.ops.population_costs``
 and the deltas ``binpack_sa_step.ops.sa_step_deltas`` on the same inputs,
-so a fused barrier cannot change any engine trajectory.
+so a fused barrier cannot change any engine trajectory.  Spans
+(`repro_torch.obs`): ``ops.call`` around the device backends' call,
+``ops.launch`` around the fused kernel (or plain version), ``ops.wait``
+around the ``.cpu()``.
 
 ``mesh`` (a `launch.mesh.SweepMesh`) row-shards a call on the torch and
 cuda backends: the population rows and the step rows pad to a multiple of
@@ -34,8 +37,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import obs
 from ..binpack_sa_step.ops import _bin_costs_kinds_numpy, _bin_costs_numpy
-from ..probshard import mesh_size, pad_rows, row_shard
+from ..probshard import fetch, mesh_size, pad_rows, row_shard
 from ..staging import stage_groups
 from .kernel import portfolio_step_joined_cuda, portfolio_step_kinds_joined_cuda
 from .ref import portfolio_step_kinds_ref, portfolio_step_ref
@@ -112,11 +116,15 @@ def portfolio_step(
         """One block's ``(rows + C,)`` int64 totals then deltas, on ``dev``
         (not fetched): both halves staged with one copy, one fused call."""
         pop_s, step_s = stage_groups((planes[:len(pop)], planes[len(pop):]), dev)
+        tok = obs.begin("ops.launch")
         args = (*pop_s.unbind(0), *step_s.unbind(0), tables)
-        return cuda(*args) if backend == "cuda" else torch.cat(plain(*args))
+        out = cuda(*args) if backend == "cuda" else torch.cat(plain(*args))
+        obs.end(tok)
+        return out
 
+    tok = obs.begin("ops.call")
     if mesh is None:
-        both = body(torch.device(device), *pop, *step).cpu().numpy()
+        both = fetch(body(torch.device(device), *pop, *step))
         rows = int(np.prod(lead))
         totals, deltas = both[:rows], both[rows:]
     else:
@@ -129,6 +137,7 @@ def portfolio_step(
         both = row_shard(mesh, body, (*pop_p, *step_p), device).reshape(k, rb + cb)
         totals = both[:, :rb].reshape(-1)[:n_pop]
         deltas = both[:, rb:].reshape(-1)[:n_step]
+    obs.end(tok)
     return (
         totals.astype(np.float64).reshape(lead),
         deltas.reshape(step_lead),

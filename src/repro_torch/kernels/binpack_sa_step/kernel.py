@@ -6,7 +6,8 @@
 ``kernels/csrc/binpack_sa_step.cu``.  Both take ``(C, T)`` int32 planes and
 return the ``(C,)`` int64 per-chain deltas.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor, and only a CPU tensor, takes the plain
-version in ``ref.py``.  Each wrapper counts its launches in ``.launches``.
+version in ``ref.py``.  Each wrapper counts its launches
+(`build.count_launch`, read with `kernels.launch_counts`).
 
 Domain: ``w, h >= 0`` (int32); a slot with ``w == 0`` is empty and costs
 0.  A slot with ``w > 0`` and ``h < 0`` is outside it: the kernel and the
@@ -47,9 +48,6 @@ def sa_step_deltas_cuda(old_w, old_h, new_w, new_h, modes) -> torch.Tensor:
     return out
 
 
-sa_step_deltas_cuda.launches = 0
-
-
 def sa_step_deltas_kinds_cuda(
     old_w, old_h, old_k, new_w, new_h, new_k, kind_tables
 ) -> torch.Tensor:
@@ -76,6 +74,3 @@ def sa_step_deltas_kinds_cuda(
     )
     count_launch(sa_step_deltas_kinds_cuda)
     return out
-
-
-sa_step_deltas_kinds_cuda.launches = 0

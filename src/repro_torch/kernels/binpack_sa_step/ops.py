@@ -14,7 +14,9 @@ The engines' state is host numpy, so the torch and cuda backends move a
 step's planes to ``device`` in ONE copy from one pinned ``(P, R, T)`` host
 buffer (``kernels/staging.py``) and the deltas back in one ``.cpu()``
 copy.  All backends use exact integer arithmetic and return bit-identical
-deltas, so the annealer's trajectory cannot depend on the backend.
+deltas, so the annealer's trajectory cannot depend on the backend.  The
+kernel (or plain version) call is the span ``ops.launch``
+(`repro_torch.obs`), inside the call's ``ops.call`` (`kernels/probshard.py`).
 
 The Metropolis *comparison* (``u < exp(-d_e / T)``) deliberately stays on
 the host in float64 (`metropolis_mask`, or a conditional scalar draw in the
@@ -39,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import obs
 from ..probshard import run_rows
 from ..staging import stage
 from .kernel import sa_step_deltas_cuda, sa_step_deltas_kinds_cuda
@@ -116,12 +119,16 @@ def sa_step_deltas(
     def body(dev, *planes) -> torch.Tensor:
         """The (R,) int64 deltas of one block, on ``dev`` (not fetched): the
         planes as views of one staged ``(P, R, T)`` tensor (one copy)."""
-        staged = stage(planes, dev).unbind(0)
+        staged = stage(planes, dev)
+        tok = obs.begin("ops.launch")
         if hetero:
             fn = sa_step_deltas_kinds_cuda if backend == "cuda" else sa_step_deltas_kinds_ref
-            return fn(*staged, kind_tables)
-        fn = sa_step_deltas_cuda if backend == "cuda" else sa_step_deltas_ref
-        return fn(*staged, modes)
+            out = fn(*staged.unbind(0), kind_tables)
+        else:
+            fn = sa_step_deltas_cuda if backend == "cuda" else sa_step_deltas_ref
+            out = fn(*staged.unbind(0), modes)
+        obs.end(tok)
+        return out
 
     out = run_rows(body, planes, device, mesh)
     return out.reshape(lead)

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .. import obs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step", "packed_gather")
@@ -205,6 +207,11 @@ def _build(names) -> dict[str, str]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
+    with obs.span("kernels.build"):
+        return _compile(todo)
+
+
+def _compile(todo) -> dict[str, str]:
     nvcc = _nvcc()
     procs = {}
     for name in todo:
@@ -278,7 +285,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    with _BUILD_LOCK:
+    with _BUILD_LOCK, obs.span("kernels.load"):
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -328,15 +335,12 @@ def check_planes(what: str, planes):
     return first.device
 
 
-_COUNT_LOCK = threading.Lock()
-
-
 def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``.  The island portfolio launches from
+    """Add one to the counter ``launch.<wrapper's name>`` (`obs.count`;
+    read with `kernels.launch_counts`).  The island portfolio launches from
     two host threads at once, so the increment holds a lock: no launch is
     lost from the count."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1
+    obs.count("launch." + wrapper.__name__)
 
 
 def launch(device, fn, *args) -> None:

@@ -7,7 +7,8 @@ contract and raises on anything else: a contiguous float32 (R, C) bank with
 R % 8 == 0 and C % 128 == 0, (N, C) float32 activations, (R,) int32
 segment ids, all on one device.  A CUDA tensor launches the kernel (or
 raises); a CPU tensor, and only a CPU tensor, takes the plain version in
-``ref.py``.  The wrapper counts its launches in ``.launches``.
+``ref.py``.  The wrapper counts its launches
+(`build.count_launch`, read with `kernels.launch_counts`).
 """
 from __future__ import annotations
 
@@ -70,6 +71,3 @@ def packed_gather_cuda(bank, x, seg) -> torch.Tensor:
            seg.data_ptr(), out.data_ptr(), r, c, x.shape[0])
     count_launch(packed_gather_cuda)
     return out
-
-
-packed_gather_cuda.launches = 0

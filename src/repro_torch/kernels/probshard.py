@@ -21,11 +21,16 @@ comes back with its own ``.cpu()``; every block is launched before the
 first is fetched, so blocks on different cards overlap.  All kernels use
 exact integer arithmetic, so the sharded result is bit-identical to the
 unsharded one.
+
+Spans (`repro_torch.obs`): ``ops.call`` (one a `run_rows` call) and
+``ops.wait`` (each ``.cpu()``, which waits for the device).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 def mesh_size(mesh) -> int:
@@ -114,7 +119,16 @@ def row_shard(mesh, body, arrays, device=None) -> np.ndarray:
         ))
         for i, dev in enumerate(devices)
     ]
-    return np.concatenate([out.cpu().numpy() for out in pending], axis=0)
+    return np.concatenate([fetch(out) for out in pending], axis=0)
+
+
+def fetch(out: torch.Tensor) -> np.ndarray:
+    """``out`` on the host, as numpy: one ``.cpu()``, which waits for the
+    device to finish the work before it (span ``ops.wait``)."""
+    tok = obs.begin("ops.wait")
+    host = out.cpu().numpy()
+    obs.end(tok)
+    return host
 
 
 def run_rows(body, planes, device, mesh=None) -> np.ndarray:
@@ -123,8 +137,12 @@ def run_rows(body, planes, device, mesh=None) -> np.ndarray:
     ``.cpu()``, or, with a mesh, the planes flattened to ``(R, T)``,
     zero-padded, row-split with `row_shard` and the padding sliced off.
     Returns the ``(R,)`` outputs as host numpy."""
+    tok = obs.begin("ops.call")
     if mesh is None:
-        return body(torch.device(device), *planes).cpu().numpy()
-    t = np.shape(planes[0])[-1]
-    padded, n = pad_rows([np.reshape(p, (-1, t)) for p in planes], mesh_size(mesh))
-    return row_shard(mesh, body, padded, device)[:n]
+        out = fetch(body(torch.device(device), *planes))
+    else:
+        t = np.shape(planes[0])[-1]
+        padded, n = pad_rows([np.reshape(p, (-1, t)) for p in planes], mesh_size(mesh))
+        out = row_shard(mesh, body, padded, device)[:n]
+    obs.end(tok)
+    return out

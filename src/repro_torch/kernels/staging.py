@@ -13,6 +13,10 @@ buffer with a wait on an event was measured slower on the H100 (PERF.md).
 Buffers are taken per call from the allocator, never kept in a module-level
 buffer: the island portfolio's lane threads call the ops layer at once.
 Nothing falls back: a pin or a copy that fails raises.
+
+Spans (`repro_torch.obs`): ``ops.alloc`` (sizing and taking the host
+buffer), ``ops.fill`` (the planes into it), ``ops.copy`` (the copy's
+enqueue and the device views of it).
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import math
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 def host_buffer(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -51,10 +57,13 @@ def stage_groups(groups, device) -> tuple[torch.Tensor, ...]:
     of the leading axes), each a contiguous view of the one device buffer,
     the groups back to back in the order given; plane ``i`` of a group is
     its contiguous ``(R_g, T_g)`` slice ``i``."""
+    tok = obs.begin("ops.alloc")
     device = torch.device(device)
     shapes = [_plane_shape(arrays) for arrays in groups]
     sizes = [len(a) * math.prod(s) for a, s in zip(groups, shapes)]
     host = host_buffer((sum(sizes),), torch.int32, device)
+    obs.end(tok)
+    tok = obs.begin("ops.fill")
     flat = host.numpy()
     start = 0
     for arrays, shape, size in zip(groups, shapes, sizes):
@@ -64,11 +73,15 @@ def stage_groups(groups, device) -> tuple[torch.Tensor, ...]:
                        out=flat[start:start + size].reshape((len(arrays) * shape[0],)
                                                              + shape[1:]))
         start += size
+    obs.end(tok)
+    tok = obs.begin("ops.copy")
     moved = host.to(device, non_blocking=True)
-    return tuple(
+    out = tuple(
         part.view(len(arrays), math.prod(shape[:-1]), shape[-1])
         for part, arrays, shape in zip(moved.split(sizes), groups, shapes)
     )
+    obs.end(tok)
+    return out
 
 
 def stage(arrays, device) -> torch.Tensor:

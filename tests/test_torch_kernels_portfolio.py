@@ -183,12 +183,11 @@ def test_launch_counts_are_exact_across_threads():
     import sys
     import threading
 
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.build import count_launch
 
-    def wrapper():
-        pass
-
-    wrapper.launches = 0
+    wrapper = portfolio_step_cuda
+    reset_launch_counts()
     n_threads, n_bumps = (os.cpu_count() or 1) + 4, 5_000
 
     def bump():
@@ -206,7 +205,8 @@ def test_launch_counts_are_exact_across_threads():
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
-    assert wrapper.launches == n_threads * n_bumps
+    assert launch_counts()["portfolio_step_cuda"] == n_threads * n_bumps
+    reset_launch_counts()
 
 
 def test_load_builds_each_library_once_across_threads(tmp_path, monkeypatch):

@@ -14,7 +14,7 @@ import torch
 
 from repro.core.problem import BRAM18, URAM288
 from repro.kernels.binpack_sa_step.ops import sa_step_deltas as ref_sa_step_deltas
-from repro_torch.kernels import staging
+from repro_torch.kernels import launch_counts, staging
 from repro_torch.kernels.binpack_sa_step import kernel as sa_kernel
 from repro_torch.kernels.binpack_sa_step import ops as sa_ops
 
@@ -134,7 +134,7 @@ def test_wrappers_check_kind_tables_on_every_device():
     rng = np.random.default_rng(6)
     planes = [torch.from_numpy(x) for x in (*_planes(rng, (8, 4), 2), *_planes(rng, (8, 4), 2))]
     ow, oh, ok, nw, nh, nk = planes
-    before = sa_kernel.sa_step_deltas_cuda.launches, sa_kernel.sa_step_deltas_kinds_cuda.launches
+    before = launch_counts()
     listed = [[1, [list(m) for m in BRAM18.modes]], [16, [list(m) for m in URAM288.modes]]]
     torch.testing.assert_close(
         sa_kernel.sa_step_deltas_kinds_cuda(ow, oh, ok, nw, nh, nk, listed),
@@ -144,5 +144,4 @@ def test_wrappers_check_kind_tables_on_every_device():
     with pytest.raises(ValueError):
         sa_kernel.sa_step_deltas_cuda(ow, oh, nw, nh, ((0, 5),))
     # the CPU path counts no launch
-    assert (sa_kernel.sa_step_deltas_cuda.launches,
-            sa_kernel.sa_step_deltas_kinds_cuda.launches) == before
+    assert launch_counts() == before
