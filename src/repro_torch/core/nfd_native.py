@@ -1,0 +1,149 @@
+"""The full NFD pass as one compiled host loop (``csrc/nfd_pass.c``).
+
+`pack_order` packs a given order with Algorithm 1's admission rule and
+returns the bins with their geometry rows, equal bit for bit to
+`nfd.nfd_pack_order` followed by the first `Solution._refresh`, and moves
+the generator on by exactly the draws that loop would take.
+
+The source compiles with the host's C compiler (``cc -O2 -shared -fPIC``)
+into a library with a plain C interface, loaded with ``ctypes`` at first
+use, never at import.  It lands in ``build/host/`` at the root of the
+checkout (listed in ``.gitignore``), named by a hash of the source and the
+flags, written to a temporary file and moved into place, so concurrent
+builds (threads, or test processes sharing the checkout) never load a
+half-written library.  Where no compiler is found, `library` returns
+``None`` and the caller runs the Python loop, which gives the same answer.
+
+Spans (`repro_torch.obs`): ``nfd.native.load`` (the first use: find, build
+and load) and ``nfd.native.build`` (the compiler run inside it).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from .. import obs
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "nfd_pass.c"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "host"
+CC_FLAGS = ("-std=c99", "-O2", "-shared", "-fPIC")
+COMPILERS = ("cc", "gcc", "clang")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_ARGTYPES = [
+    _I64, _P, _P, _P, _P, _I64, _P, _P, _I64, _I64, ctypes.c_int32,
+    ctypes.c_double, ctypes.c_double, _P, _I64, _P, _P, _P,
+]
+
+_UNSET = object()
+_lib = _UNSET  # the loaded function, or None where no compiler is found
+_lock = threading.Lock()
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CC_FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"nfd_pass-{h.hexdigest()[:16]}.so"
+
+
+def _compiler() -> str | None:
+    for name in COMPILERS:
+        found = shutil.which(name)
+        if found:
+            return found
+    return None
+
+
+def _compile(cc: str, path: Path) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+    out = subprocess.run(
+        [cc, *CC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cc} failed for {SOURCE.name} (exit {out.returncode}):\n"
+                           f"{out.stdout}")
+    os.replace(tmp, path)  # atomic: never a half-written library
+
+
+def _load():
+    path = library_path()
+    if not path.exists():
+        cc = _compiler()
+        if cc is None:
+            return None
+        with obs.span("nfd.native.build"):
+            _compile(cc, path)
+    fn = ctypes.CDLL(str(path)).nfd_pass
+    fn.argtypes = _ARGTYPES
+    fn.restype = _I64
+    return fn
+
+
+def library():
+    """The compiled ``nfd_pass``, built and loaded at the first call (once,
+    whichever threads ask at once), or ``None`` where no C compiler is found.
+    Raises if the compiler fails."""
+    global _lib
+    fn = _lib
+    if fn is not _UNSET:
+        return fn
+    with _lock:
+        if _lib is _UNSET:
+            with obs.span("nfd.native.load"):
+                _lib = _load()
+        return _lib
+
+
+def pack_order(prob, order: np.ndarray, rng: np.random.Generator, p_adm_w: float,
+               p_adm_h: float, intra_layer: bool):
+    """``(bins, geom)``: the pass over ``order`` (int64) as lists of buffer
+    indices and their ``(len(bins), 6)`` int64 geometry rows on kind 0, with
+    ``rng`` moved on as the Python loop moves it; ``None`` (``rng``
+    untouched) where the library is unavailable, the generator is not a
+    numpy ``Generator``, or a mode table holds a size below 1."""
+    fn = library()
+    if fn is None or not isinstance(rng, np.random.Generator):
+        return None
+    order = np.ascontiguousarray(order, dtype=np.int64)
+    n = len(order)
+    if order.ndim != 1 or (n and (order.min() < 0 or order.max() >= prob.n)):
+        raise ValueError(f"order must be 1-D indices into the problem's {prob.n} buffers")
+    # the draws the loop may take (at most two a buffer), read from the
+    # stream and then given back: `random` never touches the generator's
+    # buffered 32-bit half, and the state is restored whole before the
+    # generator is moved on by the draws actually used
+    state = rng.bit_generator.state
+    uniforms = rng.random(2 * n)
+    rng.bit_generator.state = state
+    mode_w, mode_d = prob._kind_mode_w[0], prob._kind_mode_d[0]
+    starts = np.empty(n + 1, dtype=np.int64)
+    geom = np.empty((n, 6), dtype=np.int64)
+    used = np.zeros(1, dtype=np.int64)
+    nb = fn(
+        n, order.ctypes.data, prob.widths.ctypes.data, prob.depths.ctypes.data,
+        prob.layers.ctypes.data, len(mode_w), mode_w.ctypes.data, mode_d.ctypes.data,
+        int(prob.kind_weights[0]), prob.max_items, int(bool(intra_layer)),
+        float(p_adm_w), float(p_adm_h), uniforms.ctypes.data, len(uniforms),
+        starts.ctypes.data, geom.ctypes.data, used.ctypes.data,
+    )
+    if nb == -1:
+        return None
+    if nb < 0:
+        raise RuntimeError(f"nfd_pass failed with {nb}")
+    if used[0]:
+        rng.random(int(used[0]))
+    flat = order.tolist()
+    cuts = starts[: nb + 1].tolist()
+    bins = [flat[a:b] for a, b in zip(cuts, cuts[1:])]
+    return bins, geom[:nb]
