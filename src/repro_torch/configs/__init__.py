@@ -12,6 +12,7 @@ import dataclasses
 from ..models.config import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 from . import (
+    granite_4_0_h_small,
     granite_moe_1b,
     hymba_1_5b,
     mamba2_1_3b,
@@ -35,6 +36,8 @@ _MODULES = {
     "whisper-medium": whisper_medium,
     "phi-3-vision-4.2b": phi3_vision_4_2b,
     "mamba2-1.3b": mamba2_1_3b,
+    # the port's own, beyond the reference's ten
+    "granite-4.0-h-small": granite_4_0_h_small,
 }
 
 ARCHS = tuple(_MODULES)

@@ -24,6 +24,7 @@ import torch
 from ..device import resolve_device
 from ..memory import PackedParameterStore, plan_packing
 from ..models import model as M
+from ..models.config import HybridConfig
 from .train import scaled_config
 
 
@@ -117,6 +118,11 @@ def run(args: argparse.Namespace) -> DecodeRun:
     """What ``main`` does, returning the whole run."""
     device = resolve_device(args.device)
     cfg = scaled_config(args)
+    if isinstance(cfg, HybridConfig):
+        print(f"{cfg.name}: {cfg.n_layers} layers ({len(cfg.layers_of('mamba'))} Mamba-2, "
+              f"{len(cfg.layers_of('attention'))} attention), experts "
+              f"{cfg.expert_start}-{cfg.expert_start + cfg.held_experts - 1} of "
+              f"{cfg.n_experts} held, top-{cfg.top_k}, vocab {cfg.vocab_size}")
     seconds = {}
     t = time.perf_counter()
     tree = params = M.init_params(cfg, args.seed, device=device)

@@ -51,7 +51,7 @@ import torch
 
 from ..configs import ARCHS, get_config, shape_cells
 from ..models import model as M
-from ..models.config import SHAPES
+from ..models.config import SHAPES, HybridConfig
 from ..optim import AdamWConfig
 from ..runtime import TrainState, make_decode_step, make_prefill_step, make_train_step
 from ..sharding import (
@@ -339,7 +339,9 @@ def _cells(args) -> list[tuple[str, str, bool]]:
         pods.append(True)
     if args.single_pod or not args.multi_pod:
         pods.insert(0, False)
-    archs = list(ARCHS) if (args.all or not args.arch) else [args.arch]
+    # a HybridConfig is one chip's share of a deployment, not a mesh's model
+    mesh_archs = [a for a in ARCHS if not isinstance(get_config(a), HybridConfig)]
+    archs = mesh_archs if (args.all or not args.arch) else [args.arch]
     cells = []
     for arch in archs:
         shapes = shape_cells(arch) if (args.all or not args.shape) else [args.shape]

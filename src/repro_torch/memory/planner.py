@@ -15,9 +15,22 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..core.api import pack
+from .. import obs
+from ..core import api
 from ..device import check_backend, resolve_device
 from . import tiles
+
+# top-level collections whose leaves are stacked over their layers
+STACKED = ("layers", "enc_layers", "mamba_layers", "attn_layers")
+
+
+class InvalidPlan(ValueError):
+    """The packer's answer breaks a guarantee (`Solution.validate`): no
+    bank is laid out from it.  ``result`` is that answer."""
+
+    def __init__(self, message: str, result):
+        super().__init__(message)
+        self.result = result
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,15 +97,16 @@ def leaves_with_paths(tree, prefix: tuple[str, ...] = ()):
 def _flatten_params(params, split_stacked: bool = False) -> list[tuple[str, tuple[int, ...], int]]:
     """(path, shape, itemsize) per logical buffer.
 
-    With ``split_stacked`` every leaf under a stacked-layer collection is
-    split into per-layer slices ``path#k`` -- the deployment-artifact view
-    (per-layer weights, as in FINN's per-layer memories and HF checkpoints).
+    With ``split_stacked`` every leaf under a stacked-layer collection
+    (`STACKED`) is split into per-layer slices ``path#k`` -- the
+    deployment-artifact view (per-layer weights, as in FINN's per-layer
+    memories and HF checkpoints).
     """
     out = []
     for ps, leaf in leaves_with_paths(params):
         shape = tuple(int(s) for s in leaf.shape)
         itemsize = leaf.dtype.itemsize
-        if split_stacked and ps.startswith(("layers/", "enc_layers/")) and shape:
+        if split_stacked and ps.split("/", 1)[0] in STACKED and "/" in ps and shape:
             for k in range(shape[0]):
                 out.append((f"{ps}#{k}", shape[1:] or (1,), itemsize))
         else:
@@ -111,70 +125,94 @@ def plan_packing(
     split_stacked: bool = False,
     backend: str = "auto",
     device=None,
+    **settings,
 ) -> dict[int, BankPlan]:
     """Plan packed banks per dtype class.  Returns {itemsize: BankPlan}.
 
     The same plan as ``repro.memory.plan_packing`` for the same tree, as
-    long as the packer stops on patience and not on ``max_seconds`` (its
-    only budget is the wall clock; check ``packer_result.wall_time_s``).
-    ``backend`` and ``device`` go to `repro_torch.core.pack`: ``device``
-    defaults to ``"cuda"`` and raises where CUDA is not available; on the
-    card the GA's fitness runs on the hand-written fitness kernel.
+    long as the packer stops on patience and not on ``max_seconds``
+    (check ``packer_result.wall_time_s``).  ``settings`` go to the packer
+    as they are (`repro_torch.core.pack`'s hyperparameters and budgets:
+    ``n_chains``, ``max_iterations``, ``patience``, ``sa_t0``, ...), so a
+    step budget fixes a plan's work by its seed; without them the packer
+    runs on its defaults, as the reference's does.  ``backend`` and
+    ``device`` go to `repro_torch.core.pack`: ``device`` defaults to
+    ``"cuda"`` and raises where CUDA is not available; on the card the
+    GA's fitness and SA's step deltas run on the hand-written kernels.
+
+    Spans (`repro_torch.obs`): the entry span ``memory.plan`` over the
+    call, and inside it ``memory.plan.flatten`` (the tree's leaves),
+    ``memory.plan.problem`` (a dtype class's candidates and its tile-grid
+    problem) and ``memory.plan.banks`` (the bins' bank layout); counters
+    ``memory.plan.candidates`` and ``memory.plan.banks``.
     """
-    device = resolve_device(device)
-    check_backend(backend)
-    entries = _flatten_params(params, split_stacked=split_stacked)
-    plans: dict[int, BankPlan] = {}
-    for itemsize in sorted({e[2] for e in entries}):
-        klass = [e for e in entries if e[2] == itemsize]
-        candidates = [
-            e for e in klass if tile_efficiency(e[1], itemsize) < eff_threshold
-        ]
-        skipped = [e for e in klass if e not in candidates]
-        before = sum(tiles.padded_bytes(e[1], itemsize) for e in klass)
-        logical = sum(tiles.logical_bytes(e[1], itemsize) for e in klass)
-        if len(candidates) < 2:
-            plans[itemsize] = BankPlan(
-                itemsize=itemsize, banks=[], unpacked=[e[0] for e in klass],
-                padded_bytes_before=before, padded_bytes_after=before,
-                logical_bytes=logical,
-            )
-            continue
-        prob, paths = tiles.tile_grid_problem(candidates, max_items=max_items)
-        result = pack(
-            prob, algorithm, seed=seed, max_seconds=max_seconds,
-            intra_layer=intra_layer, backend=backend, device=device,
-        )
-        result.solution.validate(intra_layer=intra_layer)
-        shape_by_path = {e[0]: e[1] for e in candidates}
-        banks: list[list[PlanEntry]] = []
-        packed_bytes = 0
-        sub = tiles.TILE_ROWS.get(itemsize, 8)
-        for bin_items in result.solution.bins:
-            bank = []
-            row = 0
-            cols = 0
-            for idx in bin_items:
-                path = paths[idx]
-                r, c = tiles.fold_2d(shape_by_path[path])
-                bank.append(
-                    PlanEntry(
-                        path=path, row_offset=row, rows=r, cols=c,
-                        shape=shape_by_path[path],
-                    )
+    with obs.span("memory.plan", entry=True):
+        device = resolve_device(device)
+        check_backend(backend)
+        with obs.span("memory.plan.flatten"):
+            entries = _flatten_params(params, split_stacked=split_stacked)
+        plans: dict[int, BankPlan] = {}
+        for itemsize in sorted({e[2] for e in entries}):
+            tok = obs.begin("memory.plan.problem")
+            klass = [e for e in entries if e[2] == itemsize]
+            candidates = [
+                e for e in klass if tile_efficiency(e[1], itemsize) < eff_threshold
+            ]
+            chosen = {e[0] for e in candidates}
+            skipped = [e for e in klass if e[0] not in chosen]
+            before = sum(tiles.padded_bytes(e[1], itemsize) for e in klass)
+            logical = sum(tiles.logical_bytes(e[1], itemsize) for e in klass)
+            if len(candidates) < 2:
+                obs.end(tok)
+                plans[itemsize] = BankPlan(
+                    itemsize=itemsize, banks=[], unpacked=[e[0] for e in klass],
+                    padded_bytes_before=before, padded_bytes_after=before,
+                    logical_bytes=logical,
                 )
-                row += r
-                cols = max(cols, c)
-            banks.append(bank)
-            packed_bytes += (
-                -(-row // sub) * sub * -(-cols // tiles.LANES) * tiles.LANES * itemsize
+                continue
+            prob, paths = tiles.tile_grid_problem(candidates, max_items=max_items)
+            obs.end(tok)
+            obs.count("memory.plan.candidates", len(candidates))
+            result = api.pack(
+                prob, algorithm, seed=seed, max_seconds=max_seconds,
+                intra_layer=intra_layer, backend=backend, device=device, **settings,
             )
-        after = packed_bytes + sum(
-            tiles.padded_bytes(e[1], itemsize) for e in skipped
-        )
-        plans[itemsize] = BankPlan(
-            itemsize=itemsize, banks=banks, unpacked=[e[0] for e in skipped],
-            padded_bytes_before=before, padded_bytes_after=after,
-            logical_bytes=logical, packer_result=result,
-        )
-    return plans
+            try:
+                result.solution.validate(intra_layer=intra_layer)
+            except ValueError as e:
+                raise InvalidPlan(str(e), result) from e
+            tok = obs.begin("memory.plan.banks")
+            shape_by_path = {e[0]: e[1] for e in candidates}
+            banks: list[list[PlanEntry]] = []
+            packed_bytes = 0
+            sub = tiles.TILE_ROWS.get(itemsize, 8)
+            for bin_items in result.solution.bins:
+                bank = []
+                row = 0
+                cols = 0
+                for idx in bin_items:
+                    path = paths[idx]
+                    r, c = tiles.fold_2d(shape_by_path[path])
+                    bank.append(
+                        PlanEntry(
+                            path=path, row_offset=row, rows=r, cols=c,
+                            shape=shape_by_path[path],
+                        )
+                    )
+                    row += r
+                    cols = max(cols, c)
+                banks.append(bank)
+                packed_bytes += (
+                    -(-row // sub) * sub * -(-cols // tiles.LANES) * tiles.LANES * itemsize
+                )
+            after = packed_bytes + sum(
+                tiles.padded_bytes(e[1], itemsize) for e in skipped
+            )
+            obs.end(tok)
+            obs.count("memory.plan.banks", len(banks))
+            plans[itemsize] = BankPlan(
+                itemsize=itemsize, banks=banks, unpacked=[e[0] for e in skipped],
+                padded_bytes_before=before, padded_bytes_after=after,
+                logical_bytes=logical, packer_result=result,
+            )
+        return plans

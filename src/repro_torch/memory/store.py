@@ -9,11 +9,15 @@ As in ``repro.memory.PackedParameterStore``, a stacked leaf whose per-layer
 slices (``path#k``) were packed is kept whole among the plain tensors as
 well: ``unpack()`` returns it from there, ``physical_bytes()`` counts it
 beside the banks, and only ``view(path#k)`` reads the bank.
+
+Building the banks is the span ``memory.store.build`` (`repro_torch.obs`);
+the counter ``memory.store.bytes`` adds the banks' bytes.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import obs
 from . import tiles
 from .planner import BankPlan, PlanEntry, leaves_with_paths
 
@@ -40,6 +44,7 @@ class PackedParameterStore:
         self.entries: dict[str, tuple[int, int, PlanEntry]] = {}
         self.plain: dict[str, torch.Tensor] = {}
         packed_paths = set()
+        tok = obs.begin("memory.store.build")
         for itemsize, plan in plans.items():
             sub = tiles.TILE_ROWS.get(itemsize, 8)
             for bi, bank in enumerate(plan.banks):
@@ -61,6 +66,8 @@ class PackedParameterStore:
                     self.entries[e.path] = (itemsize, bi, e)
                     packed_paths.add(e.path)
                 self.banks[(itemsize, bi)] = buf
+                obs.count("memory.store.bytes", buf.numel() * buf.element_size())
+        obs.end(tok)
         for path, leaf in base.items():
             if path not in packed_paths:
                 self.plain[path] = leaf

@@ -109,14 +109,23 @@ def _mask_bias(q_pos, k_pos, window: int, causal: bool) -> torch.Tensor:
     )
 
 
-def _sdpa(q, k, v, bias, scores_dtype=torch.float32):
+def _score_scale(d: int, dtype, scale: float | None) -> float:
+    """The scores' scale: ``scale`` (a config's multiplier) rounded to
+    ``dtype``, or the reference's `_inv_sqrt` of the head size."""
+    if scale is None:
+        return _inv_sqrt(d, dtype)
+    return float(torch.tensor(float(scale), dtype=torch.float32).to(dtype))
+
+
+def _sdpa(q, k, v, bias, scores_dtype=torch.float32, scale=None):
     """q (B,S,N,G,D), k/v (B,T,N,D), bias (S,T) -> (B,S,N,G,D).
 
     ``scores_dtype`` controls the materialized score precision: fp32 for
     training numerics; the serving path passes its compute dtype (bf16
     halves the dominant memory term of long-context attention, with the
-    softmax's max and sum reduced in fp32)."""
-    scale = _inv_sqrt(q.shape[-1], scores_dtype)
+    softmax's max and sum reduced in fp32).  ``scale`` multiplies the
+    scores (``None``: ``1 / sqrt(d_head)``)."""
+    scale = _score_scale(q.shape[-1], scores_dtype, scale)
     scores = _einsum("bsngd,btnd->bngst", q, k, scores_dtype)
     scores = scores * scale + bias[None, None, None, :, :].to(scores_dtype)
     if scores_dtype == torch.float32:
@@ -131,7 +140,7 @@ def _sdpa(q, k, v, bias, scores_dtype=torch.float32):
 
 
 def _sdpa_blockwise(q, k, v, q_pos, k_pos, window: int, causal: bool,
-                    scores_dtype=torch.float32):
+                    scores_dtype=torch.float32, scale=None):
     """Flash-style attention: a loop over KV blocks with running max/sum.
 
     Memory is O(S * block) instead of O(S * T)."""
@@ -143,7 +152,7 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, window: int, causal: bool,
         k = pad_local(k, (0, 0, 0, 0, 0, pad))
         v = pad_local(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=2**30)  # masked out
-    scale = _inv_sqrt(d, scores_dtype)
+    scale = _score_scale(d, scores_dtype, scale)
     acc = torch.zeros((b, s, n, g, d), dtype=torch.float32, device=q.device)
     row_max = torch.full((b, n, g, s), NEG_INF, dtype=torch.float32, device=q.device)
     row_sum = torch.zeros((b, n, g, s), dtype=torch.float32, device=q.device)
@@ -170,7 +179,7 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, window: int, causal: bool,
 
 
 def _sdpa_windowed_blocks(q, k, v, window: int, block_q: int = 1024,
-                          scores_dtype=torch.float32, q_offset: int = 0):
+                          scores_dtype=torch.float32, q_offset: int = 0, scale=None):
     """Sliding-window attention with *static* block skipping.
 
     For a window of W tokens, each q block [i*Bq, (i+1)*Bq) can only attend
@@ -194,7 +203,7 @@ def _sdpa_windowed_blocks(q, k, v, window: int, block_q: int = 1024,
             torch.arange(a0, a1, device=q.device), torch.arange(k0, a1, device=q.device),
             window, causal=True,
         )
-        outs.append(_sdpa(q[:, q0:q1], k[:, k0:a1], v[:, k0:a1], bias, scores_dtype))
+        outs.append(_sdpa(q[:, q0:q1], k[:, k0:a1], v[:, k0:a1], bias, scores_dtype, scale))
     return torch.cat(outs, dim=1)
 
 
@@ -210,11 +219,13 @@ def attn_apply(
     rope: bool = True,
     return_kv: bool = False,
     scores_dtype=torch.float32,
+    scale: float | None = None,
 ):
     """Full-sequence attention (training / prefill). Cross-attn when kv_x set.
 
     With ``return_kv`` also returns the projected (k, v) — used by prefill to
-    populate the decode cache without recomputation."""
+    populate the decode cache without recomputation.  ``scale`` multiplies
+    the scores (``None``: ``1 / sqrt(d_head)``)."""
     compute_dtype = dtype_of(cfg.dtype)
     kv_src = x if kv_x is None else kv_x
     k_pos = q_pos if k_pos is None else k_pos
@@ -224,13 +235,13 @@ def attn_apply(
     def core(q, k, v, q_pos, q_offset):
         if windowed:
             return _sdpa_windowed_blocks(q, k, v, window, scores_dtype=scores_dtype,
-                                         q_offset=q_offset)
+                                         q_offset=q_offset, scale=scale)
         if kv_src.shape[1] > _BLOCK_KV:
             return _sdpa_blockwise(
-                q, k, v, q_pos, k_pos, window, causal, scores_dtype=scores_dtype
+                q, k, v, q_pos, k_pos, window, causal, scores_dtype=scores_dtype, scale=scale
             )
         bias = _mask_bias(q_pos, k_pos, window, causal)
-        return _sdpa(q, k, v, bias, scores_dtype)
+        return _sdpa(q, k, v, bias, scores_dtype, scale)
 
     out = shard_local(core, q, (k, v), q_pos)
     b, s = x.shape[:2]
@@ -251,6 +262,7 @@ def attn_decode(
     rope: bool = True,
     update_cache: bool = True,
     append_self: bool = True,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step against a (possibly sliding-window) KV cache.
 
@@ -263,7 +275,8 @@ def attn_decode(
       stacked cache write for all layers.
 
     For windowed layers only the last `window` cache entries are sliced and
-    attended; global layers read the whole cache.
+    attended; global layers read the whole cache.  ``scale`` multiplies the
+    scores (``None``: ``1 / sqrt(d_head)``).
     """
     compute_dtype = dtype_of(cfg.dtype)
     pos = int(pos)
@@ -297,12 +310,12 @@ def attn_decode(
     b = x.shape[0]
     if update_cache or not append_self:
         def core(q, k_att, v_att, _pos, _off):
-            return _sdpa(q, k_att, v_att, bias, scores_dtype=compute_dtype)
+            return _sdpa(q, k_att, v_att, bias, scores_dtype=compute_dtype, scale=scale)
         kvs = (k_att, v_att)
     else:
         # deferred write: two-part softmax merge of (frozen cache, self)
         def core(q, k_att, v_att, k_new, v_new, _pos, _off):
-            return _sdpa_merge_self(q, k_att, v_att, bias, k_new, v_new)
+            return _sdpa_merge_self(q, k_att, v_att, bias, k_new, v_new, scale)
         kvs = (k_att, v_att, k_new, v_new)
     if seq_sharded(k_att):
         # a cache sharded on its sequence (ring-style reads): the softmax
@@ -316,14 +329,14 @@ def attn_decode(
     return out, k_new, v_new
 
 
-def _sdpa_merge_self(q, k_cache, v_cache, bias, k_new, v_new):
+def _sdpa_merge_self(q, k_cache, v_cache, bias, k_new, v_new, scale=None):
     """Decode attention over [cache, self] without concatenation.
 
     q (B,1,N,G,D); k/v_cache (B,T,N,D); bias (1,T); k/v_new (B,1,N,D).
     Flash-style: unnormalized cache attention merged with the self term.
     """
     f32 = torch.float32
-    scale = _inv_sqrt(q.shape[-1], f32)
+    scale = _score_scale(q.shape[-1], f32, scale)
     sc = _einsum("bsngd,btnd->bngst", q, k_cache, f32) * scale + bias[None, None, None, :, :]
     m_c = sc.amax(-1, keepdim=True)  # (B,N,G,1,1)
     p = torch.exp(sc - m_c)

@@ -8,6 +8,14 @@ use only).  Block kinds (cfg.block):
               averaging (Hymba, arXiv:2411.13676), then MLP
 Whisper uses `encoder` blocks (bidirectional attention) and decoder blocks
 with cross-attention (`use_cross=True`).
+
+The port's own ``hybrid`` block (`HybridConfig`, Granite-4.0-H) has one
+mixer a layer, Mamba-2 or NoPE attention by ``layer_types``, then the
+routed MoE beside the shared expert:
+``h += m * mixer(norm1(h))``, ``h += m * (MoE(x) + Shared(x))`` with
+``x = norm2(h)`` and ``m`` the residual multiplier.  Its parameters come
+in two parts, the layer's own (``common``: the norms, the MoE, the shared
+expert) and its mixer's.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ from .attention import attn_apply, attn_decode, attn_init
 from .config import ModelConfig
 from .layers import apply_norm, dtype_of, mlp_apply, mlp_init, norm_init
 from .mamba2 import ssm_apply, ssm_decode, ssm_init
-from .moe import moe_apply, moe_init
+from .moe import moe_apply, moe_ep_apply, moe_ep_init, moe_init, shared_apply, shared_init
 from .redistribute import pad_local
 
 
@@ -226,3 +234,69 @@ def block_decode(
     if cfg.d_ff > 0:
         h = h + _mlp_branch(cfg, p, h, compute_dtype)[0]
     return h, new_cache
+
+
+# ---------------------------------------------------------- hybrid (Granite)
+def hybrid_common_init(cfg, gen, dtype, device) -> dict:
+    """A hybrid layer's own parameters (its mixer's are `attn_init` or
+    `ssm_init`)."""
+    return {
+        "norm1": norm_init(cfg, cfg.d_model, dtype, device),
+        "norm2": norm_init(cfg, cfg.d_model, dtype, device),
+        "moe": moe_ep_init(cfg, gen, dtype, device),
+        "shared": shared_init(cfg, gen, dtype, device),
+    }
+
+
+def _hybrid_ffn(cfg, p: dict, h: torch.Tensor, compute_dtype):
+    """``h`` plus the MoE and shared-expert branch; and the MoE's aux loss."""
+    x = apply_norm(cfg, p["norm2"], h)
+    moe_out, aux = moe_ep_apply(cfg, p["moe"], x, compute_dtype)
+    out = moe_out + shared_apply(cfg, p["shared"], x, compute_dtype)
+    return h + out * cfg.residual_multiplier, aux
+
+
+def hybrid_block_prefill(cfg, p: dict, kind: str, mp: dict, h: torch.Tensor,
+                         positions: torch.Tensor, cache_len: int | None):
+    """Full-sequence hybrid layer of mixer ``kind`` (``p`` its own
+    parameters, ``mp`` its mixer's).  Returns (h, cache, aux): the decode
+    cache padded to ``cache_len`` (``{"k", "v"}`` or ``{"ssm"}``; ``None``
+    where ``cache_len`` is)."""
+    compute_dtype = dtype_of(cfg.dtype)
+    hn = apply_norm(cfg, p["norm1"], h)
+    cache = None
+    if kind == "mamba":
+        if cache_len is None:
+            out = ssm_apply(cfg, mp, hn, compute_dtype)
+        else:
+            out, ssm = ssm_apply(cfg, mp, hn, compute_dtype, return_state=True)
+            cache = {"ssm": ssm}
+    else:
+        out, k, v = attn_apply(cfg, mp, hn, positions, 0, rope=cfg.rope, return_kv=True,
+                               scores_dtype=compute_dtype, scale=cfg.attention_multiplier or None)
+        if cache_len is not None:
+            s = h.shape[1]
+            if cache_len < s:
+                raise ValueError(f"cache_len {cache_len} is shorter than the prompt ({s})")
+            pad = (0, 0, 0, 0, 0, cache_len - s)
+            cache = {"k": pad_local(k, pad), "v": pad_local(v, pad)}
+    h, aux = _hybrid_ffn(cfg, p, h + out * cfg.residual_multiplier, compute_dtype)
+    return h, cache, aux
+
+
+def hybrid_block_decode(cfg, p: dict, kind: str, mp: dict, h: torch.Tensor, cache: dict,
+                        pos: int):
+    """One token through a hybrid layer against its cache.  Returns (h, new):
+    the new token's ``{"k_new", "v_new"}`` (the caller writes the stacked
+    cache once) or the new ``{"ssm"}`` state."""
+    compute_dtype = dtype_of(cfg.dtype)
+    hn = apply_norm(cfg, p["norm1"], h)
+    if kind == "mamba":
+        out, ssm = ssm_decode(cfg, mp, hn, cache["ssm"], compute_dtype)
+        new = {"ssm": ssm}
+    else:
+        out, k, v = attn_decode(cfg, mp, hn, cache["k"], cache["v"], pos, 0, rope=cfg.rope,
+                                update_cache=False, scale=cfg.attention_multiplier or None)
+        new = {"k_new": k, "v_new": v}
+    h, _ = _hybrid_ffn(cfg, p, h + out * cfg.residual_multiplier, compute_dtype)
+    return h, new

@@ -3,9 +3,12 @@
 One dataclass describes dense GQA transformers, MoE transformers, Mamba-2
 (SSD) stacks, Hymba-style hybrid (parallel attention+SSM) blocks, Whisper
 encoder-decoder, and VLM backbones with stub frontends.  Per-architecture
-instances live in ``repro_torch.configs``.  The port's own copy of
-``repro.models.config``, field for field; only ``param_count`` builds its
-tree on the ``meta`` device instead of ``jax.eval_shape``.
+instances live in ``repro_torch.configs``.  `ModelConfig` is the port's own
+copy of ``repro.models.config``, field for field; only ``param_count``
+builds its tree on the ``meta`` device instead of ``jax.eval_shape``.
+`HybridConfig` extends it for the port alone: a stack whose layers pick
+their mixer one by one (Granite-4.0-H), with a shared expert, scaled
+residuals, scores and logits, and one chip's share of the routed experts.
 """
 from __future__ import annotations
 
@@ -122,6 +125,65 @@ class ModelConfig:
     def _expert_params_per(self) -> int:
         mult = 3 if self.mlp_gated else 2
         return mult * self.d_model * self.d_ff
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """Granite-4.0-H's ``granitemoehybrid`` stack (``block="hybrid"``).
+
+    Layer ``i``'s token mixer is ``layer_types[i]``: ``"mamba"`` (the
+    Mamba-2 SSD mixer of `models.mamba2`) or ``"attention"`` (GQA).  Every
+    layer then runs the routed MoE beside a shared SwiGLU expert of width
+    ``shared_d_ff``, and adds both branches times ``residual_multiplier``.
+    The embedding is scaled by ``embedding_multiplier``, attention scores
+    by ``attention_multiplier`` (0: ``1 / sqrt(d_head)``), the logits
+    divided by ``logits_scaling``; ``rope=False`` is NoPE.
+
+    Expert parallelism: the router keeps all ``n_experts`` outputs and
+    routes every token over them, and this chip holds the ``experts_held``
+    experts from ``expert_start`` on (0: all of them); a token's held
+    experts give this chip's part of the layer's output, and what the
+    other experts would add is left out."""
+
+    layer_types: tuple[str, ...] = ()
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+    rope: bool = True
+    experts_held: int = 0
+    expert_start: int = 0
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.n_layers or not set(self.layer_types) <= {
+                "mamba", "attention"}:
+            raise ValueError("layer_types needs one of 'mamba' / 'attention' a layer")
+        if self.expert_start < 0 or self.expert_start + self.held_experts > self.n_experts:
+            raise ValueError("the held experts lie outside the router's")
+
+    @property
+    def held_experts(self) -> int:
+        return self.experts_held or self.n_experts
+
+    def layers_of(self, kind: str) -> list[int]:
+        """The layer indices whose mixer is ``kind``, in order."""
+        return [i for i, t in enumerate(self.layer_types) if t == kind]
+
+    def plain_keys(self) -> dict:
+        """The published keys the plain reference reads
+        (`repro_torch.models.plain_granite4h`), from this config."""
+        return dict(
+            hidden_size=self.d_model, layer_types=list(self.layer_types),
+            mamba_n_heads=self.ssm_heads, mamba_d_head=self.ssm_head_dim,
+            mamba_d_state=self.ssm_state, mamba_d_conv=self.ssm_conv_width,
+            num_attention_heads=self.n_heads, num_key_value_heads=self.n_kv_heads,
+            num_experts_per_tok=self.top_k, embedding_multiplier=self.embedding_multiplier,
+            residual_multiplier=self.residual_multiplier,
+            attention_multiplier=self.attention_multiplier or self.d_head ** -0.5,
+            logits_scaling=self.logits_scaling, rms_norm_eps=self.norm_eps,
+            expert_start=self.expert_start,
+        )
 
 
 def np_prod(shape) -> int:

@@ -13,6 +13,15 @@ backward pass instead of kept, which changes memory, never values.  The
 layers' parameters are indexed out of the stacked leaves inside the
 checkpointed function, so gradients flow back into the stacked
 ``(n_layers, ...)`` leaves.
+
+A `HybridConfig` (Granite-4.0-H) stacks three collections: ``layers``
+(each layer's own norms, MoE and shared expert, ``n_layers`` deep),
+``mamba_layers`` and ``attn_layers`` (the mixers, one a layer of that
+kind, in layer order).  Its tree is drawn layer by layer into stacks
+allocated once, so the parameters are never held twice; its cache holds
+the SSM conv tails and states of the Mamba layers beside the K/V of the
+attention layers.  The spans ``model.prefill`` and ``model.decode_step``
+(`repro_torch.obs`) cover `prefill` and `decode_step`.
 """
 from __future__ import annotations
 
@@ -20,11 +29,21 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..device import resolve_device
-from .blocks import block_apply_train, block_decode, block_init, block_prefill
-from .config import ModelConfig
+from .attention import attn_init
+from .blocks import (
+    block_apply_train,
+    block_decode,
+    block_init,
+    block_prefill,
+    hybrid_block_decode,
+    hybrid_block_prefill,
+    hybrid_common_init,
+)
+from .config import HybridConfig, ModelConfig
 from .layers import apply_norm, dense_init, dtype_of, norm_init, truncated_normal_init
-from .mamba2 import ssm_init_cache
+from .mamba2 import ssm_init, ssm_init_cache
 from .redistribute import (
     embed_lookup,
     gather_last,
@@ -92,8 +111,106 @@ def sinusoidal_positions(seq: int, d: int) -> np.ndarray:
     return out
 
 
+# ------------------------------------------------------------------- hybrid
+MIXER_COLLECTIONS = {"mamba": "mamba_layers", "attention": "attn_layers"}
+
+
+class _Stacked:
+    """Layers' trees stacked on a new leading dim, each written into
+    tensors allocated at the first layer as it is drawn."""
+
+    def __init__(self, n: int):
+        self.n, self.i, self.tree = n, 0, None
+
+    def add(self, one: dict) -> None:
+        if self.tree is None:
+            self.tree = tree_map(lambda x: x.new_empty((self.n,) + tuple(x.shape)), one)
+        tree_map(lambda dst, src: dst[self.i].copy_(src), self.tree, one)
+        self.i += 1
+
+
+def _init_hybrid(cfg: HybridConfig, gen, device: torch.device) -> dict:
+    dtype = dtype_of(cfg.param_dtype)
+    params: dict = {
+        "embed": truncated_normal_init(
+            gen, (cfg.padded_vocab, cfg.d_model), 1.0, dtype, device
+        ),
+        "final_norm": norm_init(cfg, cfg.d_model, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab, dtype, device)
+    common = _Stacked(cfg.n_layers)
+    mixers = {k: _Stacked(len(cfg.layers_of(k))) for k in MIXER_COLLECTIONS if cfg.layers_of(k)}
+    for kind in cfg.layer_types:
+        common.add(hybrid_common_init(cfg, gen, dtype, device))
+        init = ssm_init if kind == "mamba" else attn_init
+        mixers[kind].add(init(cfg, gen, dtype, device))
+    params["layers"] = common.tree
+    for kind, st in mixers.items():
+        params[MIXER_COLLECTIONS[kind]] = st.tree
+    return params
+
+
+def hybrid_layers(cfg: HybridConfig, params: dict):
+    """(layer, kind, index among its kind's layers, the layer's own
+    parameters, its mixer's) in layer order."""
+    seen = dict.fromkeys(MIXER_COLLECTIONS, 0)
+    for i, kind in enumerate(cfg.layer_types):
+        j = seen[kind]
+        seen[kind] += 1
+        yield (i, kind, j, tree_index(params["layers"], i),
+               tree_index(params[MIXER_COLLECTIONS[kind]], j))
+
+
+def _forward_hybrid(cfg: HybridConfig, params: dict, h, positions):
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for _, kind, _, p, mp in hybrid_layers(cfg, params):
+        h, _, aux = hybrid_block_prefill(cfg, p, kind, mp, h, positions, None)
+        aux_total = aux_total + aux
+    return h, aux_total
+
+
+def _prefill_hybrid(cfg: HybridConfig, params: dict, batch: dict, cache_len: int):
+    h, positions = _embed_inputs(cfg, params, batch)
+    caches = {k: [] for k in MIXER_COLLECTIONS}
+    for _, kind, _, p, mp in hybrid_layers(cfg, params):
+        h, c, _ = hybrid_block_prefill(cfg, p, kind, mp, h, positions, cache_len)
+        caches[kind].append(c)
+    cache: dict = {}
+    if caches["attention"]:
+        cache.update(_stack(caches["attention"]))
+    if caches["mamba"]:
+        cache["ssm"] = _stack([c["ssm"] for c in caches["mamba"]])
+    h = apply_norm(cfg, params["final_norm"], h)
+    return cache, _logits(cfg, params, h[:, -1:, :])
+
+
+def _decode_hybrid(cfg: HybridConfig, params: dict, cache: dict, token, pos: int):
+    h = _embed(cfg, params, token[:, None])
+    news = {k: [] for k in MIXER_COLLECTIONS}
+    for _, kind, j, p, mp in hybrid_layers(cfg, params):
+        if kind == "mamba":
+            c = {"ssm": tree_index(cache["ssm"], j)}
+        else:
+            c = {"k": cache["k"][j], "v": cache["v"][j]}
+        h, nc = hybrid_block_decode(cfg, p, kind, mp, h, c, pos)
+        news[kind].append(nc)
+    new_cache = dict(cache)
+    if news["attention"]:
+        ys = _stack(news["attention"])
+        at = min(max(pos, 0), cache["k"].shape[2] - 1)
+        write_slot(cache["k"], 2, at, ys["k_new"].to(cache["k"].dtype))
+        write_slot(cache["v"], 2, at, ys["v_new"].to(cache["v"].dtype))
+    if news["mamba"]:
+        new_cache["ssm"] = _stack([c["ssm"] for c in news["mamba"]])
+    h = apply_norm(cfg, params["final_norm"], h)
+    return new_cache, _logits(cfg, params, h)
+
+
 # --------------------------------------------------------------------- init
 def _init(cfg: ModelConfig, gen, device: torch.device) -> dict:
+    if isinstance(cfg, HybridConfig):
+        return _init_hybrid(cfg, gen, device)
     dtype = dtype_of(cfg.param_dtype)
     params: dict = {
         "embed": truncated_normal_init(
@@ -146,6 +263,8 @@ def forward_hidden(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decoder (or encoder when causal=False) stack over a full sequence.
     Returns (h, summed MoE aux loss)."""
+    if isinstance(cfg, HybridConfig):
+        return _forward_hybrid(cfg, params, h, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for start, end, window in layer_segments(cfg):
         for i in range(start, end):
@@ -180,11 +299,19 @@ def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tenso
     return apply_norm(cfg, params["enc_norm"], h)
 
 
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype (a hybrid's times its
+    embedding multiplier)."""
+    h = embed_lookup(params["embed"], tokens).to(dtype_of(cfg.dtype))
+    if isinstance(cfg, HybridConfig):
+        h = h * cfg.embedding_multiplier
+    return h
+
+
 def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
     """Token (+ stub modality) embedding. Returns (h, positions)."""
     compute_dtype = dtype_of(cfg.dtype)
-    tokens = batch["tokens"]
-    h = embed_lookup(params["embed"], tokens).to(compute_dtype)
+    h = _embed(cfg, params, batch["tokens"])
     if cfg.frontend == "vision_stub" and "patches" in batch:
         patches = batch["patches"].to(compute_dtype)  # (B, P, D) precomputed
         h = torch.cat([patches, h], dim=1)
@@ -194,15 +321,19 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
 
 def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     """(B, S, padded_vocab) float32: the compute-dtype operands' products
-    accumulated in float32."""
+    accumulated in float32 (a hybrid's divided by its logits scaling)."""
     compute_dtype = dtype_of(cfg.dtype)
     if cfg.tie_embeddings:
-        return logits_local(
+        out = logits_local(
             lambda h, w: torch.einsum("bsd,vd->bsv", h.float(), w.to(compute_dtype).float()),
             h, params["embed"], 0)
-    return logits_local(
-        lambda h, w: torch.einsum("bsd,dv->bsv", h.float(), w.to(compute_dtype).float()),
-        h, params["lm_head"]["kernel"], 1)
+    else:
+        out = logits_local(
+            lambda h, w: torch.einsum("bsd,dv->bsv", h.float(), w.to(compute_dtype).float()),
+            h, params["lm_head"]["kernel"], 1)
+    if isinstance(cfg, HybridConfig):
+        out = out / cfg.logits_scaling
+    return out
 
 
 def _decoder_inputs(cfg: ModelConfig, params: dict, batch: dict):
@@ -268,6 +399,16 @@ def _init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
     compute_dtype = dtype_of(cfg.dtype)
     layers = cfg.n_layers
     cache: dict = {}
+    if isinstance(cfg, HybridConfig):
+        n_attn, n_ssm = len(cfg.layers_of("attention")), len(cfg.layers_of("mamba"))
+        if n_attn:
+            kv_shape = (n_attn, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+            cache["k"] = torch.zeros(kv_shape, dtype=compute_dtype, device=device)
+            cache["v"] = torch.zeros(kv_shape, dtype=compute_dtype, device=device)
+        if n_ssm:
+            one = ssm_init_cache(cfg, batch, compute_dtype, device)
+            cache["ssm"] = tree_map(lambda x: x[None].repeat((n_ssm,) + (1,) * x.dim()), one)
+        return cache
     if cfg.has_attention():
         # enc-dec: the self-attention cache is bounded by the target length;
         # cache_len sizes the cross-attention (encoder output) cache instead
@@ -287,6 +428,13 @@ def _init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     """Process the prompt; returns (cache, last_token_logits (B, 1, V))."""
+    with obs.span("model.prefill"):
+        if isinstance(cfg, HybridConfig):
+            return _prefill_hybrid(cfg, params, batch, cache_len)
+        return _prefill(cfg, params, batch, cache_len)
+
+
+def _prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     h, positions, cross_kv, cross_pos, rope = _decoder_inputs(cfg, params, batch)
     caches = []
     for _, lp, window in _layers(cfg, params["layers"]):
@@ -308,9 +456,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor
     into ``cache``'s K/V tensors in place, one stacked write per tensor at
     ``pos`` (the reference donates them to the same write); the returned
     dict holds them and the new SSM states."""
+    with obs.span("model.decode_step"):
+        if isinstance(cfg, HybridConfig):
+            return _decode_hybrid(cfg, params, cache, token, int(pos))
+        return _decode_step(cfg, params, cache, token, int(pos))
+
+
+def _decode_step(cfg: ModelConfig, params: dict, cache: dict, token: torch.Tensor, pos: int):
     compute_dtype = dtype_of(cfg.dtype)
-    pos = int(pos)
-    h = embed_lookup(params["embed"], token[:, None]).to(compute_dtype)
+    h = _embed(cfg, params, token[:, None])
     rope = True
     if cfg.encoder_decoder:
         # dynamic_slice clamps the start into the table

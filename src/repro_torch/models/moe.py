@@ -8,14 +8,24 @@ the chosen experts, a cumsum over the group's (token, slot) order, slots
 past capacity dropped), so a token keeps its place in every expert's FIFO.
 
 FLOP accounting matches `6 * N_active * D`: expert GEMMs run on
-``top_k * cf`` slots per token, never on all experts.
+``top_k * cf`` slots per token, never on all experts.  The counter
+``moe.dropped`` (`repro_torch.obs`, read while recording is on) adds the
+(token, slot) assignments dropped past capacity.
+
+`moe_ep_apply` is the port's own expert-parallel layer (`HybridConfig`,
+Granite-4.0-H): it routes every token over all ``n_experts`` with the
+gates a softmax over the ``top_k`` selected logits, and computes the part
+of the output that this chip's held experts give, every assignment to a
+held expert included (no capacity, so nothing is dropped);
+`shared_apply` is the shared SwiGLU expert beside it.
 """
 from __future__ import annotations
 
 import torch
 
-from .config import ModelConfig
-from .layers import activation, truncated_normal_init
+from .. import obs
+from .config import HybridConfig, ModelConfig
+from .layers import activation, dense, dense_init, truncated_normal_init
 from .redistribute import (
     expert_local,
     fit_split,
@@ -78,6 +88,8 @@ def moe_apply(
     pos = torch.cumsum(assign, dim=1) * assign - assign  # (G, g*k, e)
     pos = pos.sum(-1).reshape(ng, g, k)  # position per slot
     keep = pos < cap  # (G, g, k)
+    if obs.enabled():
+        obs.count("moe.dropped", int((~keep).reshape(-1, k)[:n].sum()))
 
     # flat slot id = expert * cap + pos; invalid slots point past the table
     slot = torch.where(keep, gate_idx * cap + pos.to(torch.int64), e * cap)
@@ -108,3 +120,77 @@ def moe_apply(
     ce = _one_hot(gate_idx.reshape(-1, k)[:, 0], e, torch.float32).mean(0)
     aux = (me * ce).sum() * e * cfg.router_aux_weight
     return out, aux.float()
+
+
+# ------------------------------------------------- expert parallel (Granite)
+def moe_ep_init(cfg: HybridConfig, gen, dtype, device) -> dict:
+    """The router over all ``n_experts`` and the held experts' tables."""
+    e, d, f = cfg.held_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": truncated_normal_init(gen, (d, cfg.n_experts), 1.0, dtype, device),
+        "gate": truncated_normal_init(gen, (e, d, f), 1.0, dtype, device),
+        "up": truncated_normal_init(gen, (e, d, f), 1.0, dtype, device),
+        "down": truncated_normal_init(gen, (e, f, d), 1.0, dtype, device),
+    }
+
+
+def shared_init(cfg: HybridConfig, gen, dtype, device) -> dict:
+    d, f = cfg.d_model, cfg.shared_d_ff
+    return {
+        "gate": dense_init(gen, d, f, dtype, device),
+        "up": dense_init(gen, d, f, dtype, device),
+        "down": dense_init(gen, f, d, dtype, device),
+    }
+
+
+def shared_apply(cfg: HybridConfig, params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The shared expert: ``silu(x Wg) * (x Wu)`` times ``Wd``."""
+    h = activation(cfg.mlp_act, dense(params["gate"], x, compute_dtype)) * dense(
+        params["up"], x, compute_dtype)
+    return dense(params["down"], h, compute_dtype)
+
+
+def moe_ep_apply(
+    cfg: HybridConfig, params: dict, x: torch.Tensor, compute_dtype
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (this chip's experts' part of the output, aux loss).
+
+    The router's products in float32; each token's ``top_k`` experts of
+    all ``n_experts`` (``torch.topk``) with gates ``softmax`` over their
+    logits.  The assignments to held experts are sorted by expert, and
+    each held expert runs its SwiGLU on its own tokens (one host read of
+    the per-expert counts); its outputs, times their gates, are added in
+    float32.  The aux loss is the Switch form over all experts, as
+    `moe_apply`'s."""
+    b, s, d = x.shape
+    e_all, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(b * s, d).to(compute_dtype)
+    logits = xt.float() @ params["router"].to(compute_dtype).float()  # (n, E)
+    top_logits, top_idx = torch.topk(logits, k, dim=-1)
+    gates = torch.softmax(top_logits, dim=-1)
+    local = top_idx - cfg.expert_start
+    held = (local >= 0) & (local < cfg.held_experts)
+    tok, slot = held.nonzero(as_tuple=True)
+    ex = local[tok, slot]
+    order = torch.argsort(ex, stable=True)
+    tok, slot, ex = tok[order], slot[order], ex[order]
+    weight = gates[tok, slot]
+    counts = torch.bincount(ex, minlength=cfg.held_experts).tolist()
+    out = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    at = 0
+    for e, c in enumerate(counts):
+        if c:
+            rows = tok[at:at + c]
+            xe = xt[rows]
+            h = activation(cfg.mlp_act, xe @ params["gate"][e].to(compute_dtype)) * (
+                xe @ params["up"][e].to(compute_dtype))
+            ye = h @ params["down"][e].to(compute_dtype)
+            out.index_add_(0, rows, ye.float() * weight[at:at + c, None])
+            at += c
+    obs.count("moe.dropped", len(tok) - at)
+
+    probs = torch.softmax(logits, dim=-1)
+    me = probs.mean(0)
+    ce = _one_hot(top_idx[:, 0], e_all, torch.float32).mean(0)
+    aux = (me * ce).sum() * e_all * cfg.router_aux_weight
+    return out.to(compute_dtype).reshape(b, s, d), aux

@@ -115,7 +115,8 @@ def ref_weights(arch, seed=0):
 # ------------------------------------------------------------- configs
 @pytest.mark.parametrize("arch", configs.ARCHS)
 def test_configs_and_segments_equal_reference(arch):
-    assert tconfigs.ARCHS == configs.ARCHS
+    # the reference's archs first, in its order; the port's own after them
+    assert tconfigs.ARCHS[:len(configs.ARCHS)] == configs.ARCHS
     for get in ("get_config", "get_smoke_config"):
         ref = getattr(configs, get)(arch)
         port = getattr(tconfigs, get)(arch)
