@@ -7,12 +7,10 @@ the generator on by exactly the draws that loop would take.
 
 The source compiles with the host's C compiler (``cc -O2 -shared -fPIC``)
 into a library with a plain C interface, loaded with ``ctypes`` at first
-use, never at import.  It lands in ``build/host/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of the source and the
-flags, written to a temporary file and moved into place, so concurrent
-builds (threads, or test processes sharing the checkout) never load a
-half-written library.  Where no compiler is found, `library` returns
-``None`` and the caller runs the Python loop, which gives the same answer.
+use, never at import, by `hostlib.library` (``build/host/``, named by a hash
+of the source and the flags).  Where no compiler is found, `library`
+returns ``None`` and the caller runs the Python loop, which gives the same
+answer.
 
 Spans (`repro_torch.obs`): ``nfd.native.load`` (the first use: find, build
 and load) and ``nfd.native.build`` (the compiler run inside it).
@@ -20,21 +18,19 @@ and load) and ``nfd.native.build`` (the compiler run inside it).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
+import sys
 import threading
 from pathlib import Path
 
 import numpy as np
 
-from .. import obs
+from . import hostlib
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "nfd_pass.c"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "host"
-CC_FLAGS = ("-std=c99", "-O2", "-shared", "-fPIC")
-COMPILERS = ("cc", "gcc", "clang")
+BUILD_DIR = hostlib.BUILD_DIR
+CC_FLAGS = hostlib.CC_FLAGS
+COMPILERS = hostlib.COMPILERS
+SPAN = "nfd.native"
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -43,66 +39,27 @@ _ARGTYPES = [
     ctypes.c_double, ctypes.c_double, _P, _I64, _P, _P, _P,
 ]
 
-_UNSET = object()
+_UNSET = hostlib.UNSET
 _lib = _UNSET  # the loaded function, or None where no compiler is found
 _lock = threading.Lock()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"nfd_pass-{h.hexdigest()[:16]}.so"
-
-
-def _compiler() -> str | None:
-    for name in COMPILERS:
-        found = shutil.which(name)
-        if found:
-            return found
-    return None
-
-
-def _compile(cc: str, path: Path) -> None:
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
-    out = subprocess.run(
-        [cc, *CC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if out.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{cc} failed for {SOURCE.name} (exit {out.returncode}):\n"
-                           f"{out.stdout}")
-    os.replace(tmp, path)  # atomic: never a half-written library
-
-
-def _load():
-    path = library_path()
-    if not path.exists():
-        cc = _compiler()
-        if cc is None:
-            return None
-        with obs.span("nfd.native.build"):
-            _compile(cc, path)
-    fn = ctypes.CDLL(str(path)).nfd_pass
+def _bind(cdll):
+    fn = cdll.nfd_pass
     fn.argtypes = _ARGTYPES
     fn.restype = _I64
     return fn
+
+
+def library_path() -> Path:
+    return hostlib.library_path(sys.modules[__name__])
 
 
 def library():
     """The compiled ``nfd_pass``, built and loaded at the first call (once,
     whichever threads ask at once), or ``None`` where no C compiler is found.
     Raises if the compiler fails."""
-    global _lib
-    fn = _lib
-    if fn is not _UNSET:
-        return fn
-    with _lock:
-        if _lib is _UNSET:
-            with obs.span("nfd.native.load"):
-                _lib = _load()
-        return _lib
+    return hostlib.library(sys.modules[__name__])
 
 
 def pack_order(prob, order: np.ndarray, rng: np.random.Generator, p_adm_w: float,
