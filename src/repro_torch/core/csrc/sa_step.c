@@ -2,8 +2,9 @@
  * slots' geometry and the commit of `_block_gen` (core/sa.py), in three
  * calls over one state struct, each a plain loop over the chain rows.
  *
- * Every choice and every number is the numpy body's, so the state, the
- * request planes, the penalty and the counters are equal bit for bit:
+ * Every choice and every number is the reference's numpy body's
+ * (repro.core.sa), so the state, the request planes, the penalty and the
+ * counters are equal bit for bit:
  *   - a row's moves run in move order and touch that row alone, so a loop
  *     over rows with the moves inside does what numpy does move by move
  *     over all rows;
@@ -16,7 +17,10 @@
  *     (`pen`, the penalized costs) is computed in numpy's order:
  *     `lam * (double)(ovf_new - ovf_old)`, `(double)cost + lam * (double)ovf`,
  *     `(double)d_e + pen`; argmin takes the first least value, or the first
- *     NaN, as numpy's does.
+ *     NaN, as numpy's does;
+ *   - an integer penalty weight (`float_pcosts` 0 on a multi-kind fleet)
+ *     keeps `pen` and the penalized costs int64, weighted by `ilam`, as
+ *     numpy's integer arithmetic does.
  * The Metropolis compare stays in numpy float64 between `sa_gather` and
  * `sa_commit`; the draws stay numpy `Generator` calls before `sa_propose`.
  * Plain C with no library call, built by core/sa_native.py with the host
@@ -30,7 +34,7 @@
  * buffer-table columns (the last one the empty sentinel). */
 typedef struct {
   int64_t n_probs, n_chains, n_rows, n_moves, n_slots, cap, n_kinds, n_u, tab_len,
-      max_modes, hetero, intra_layer, bounded;
+      max_modes, hetero, intra_layer, bounded, float_pcosts, ilam;
   double p_kind, lam;
   /* problem tables */
   const int64_t *wtab, *dtab, *ltab; /* (P or 1, T) */
@@ -46,7 +50,8 @@ typedef struct {
   const int64_t *live;   /* (R,) */
   int64_t *costs, *stale, *steps; /* (R,) */
   int64_t *uk;                    /* (R, K) on hetero */
-  void *pcosts, *best_pcosts;     /* (R,) double on hetero, else int64 (pcosts == costs) */
+  void *pcosts, *best_pcosts;     /* (R,) double where float_pcosts, else int64
+                                     (single-kind: pcosts == costs) */
   int64_t *up_prop, *up_acc;      /* (P,) */
   /* per-problem best */
   void *gbest_pcost; /* (P,) as pcosts */
@@ -64,7 +69,7 @@ typedef struct {
   int32_t *snap_counts;    /* (R, M, 2) */
   int32_t *old_w, *old_h, *new_w, *new_h, *old_k, *new_k; /* (R, W) */
   int64_t *duk;            /* (R, K) */
-  double *pen;             /* (R,) */
+  void *pen;               /* (R,) as pcosts */
   const int64_t *d_e;      /* (R,) the delta call's answer */
   const uint8_t *accept;   /* (R,) Metropolis mask & active */
   int64_t *improved;       /* (P,) problems whose best improved */
@@ -240,7 +245,11 @@ int64_t sa_gather(Step *s) {
         if (ko >= 0 && ko < K) du[ko] -= primitives(s, s->old_w[i], s->old_h[i], ko);
       }
       const int64_t *uk = s->uk + r * K;
-      s->pen[r] = s->lam * (double)(overflow(s, p, uk, du) - overflow(s, p, uk, NULL));
+      const int64_t dovf = overflow(s, p, uk, du) - overflow(s, p, uk, NULL);
+      if (s->float_pcosts)
+        ((double *)s->pen)[r] = s->lam * (double)dovf;
+      else
+        ((int64_t *)s->pen)[r] = s->ilam * dovf;
     }
   }
   return 0;
@@ -254,7 +263,9 @@ int64_t sa_gather(Step *s) {
 int64_t sa_commit(Step *s) {
   const int64_t R = s->n_rows, NB = s->n_slots, CAP = s->cap, M = s->n_moves, W = 2 * M,
                 K = s->n_kinds, C = s->n_chains;
-  const int het = s->hetero != 0, bounded = het && s->bounded;
+  const int het = s->hetero != 0, bounded = het && s->bounded, fpc = s->float_pcosts != 0;
+  const double *penf = s->pen;
+  const int64_t *peni = s->pen;
   double *pcf = s->pcosts, *bestf = s->best_pcosts, *gbf = s->gbest_pcost;
   int64_t *pci = s->pcosts, *besti = s->best_pcosts, *gbi = s->gbest_pcost;
   for (int64_t r = 0; r < R; ++r) {
@@ -301,16 +312,23 @@ int64_t sa_commit(Step *s) {
       int64_t *uk = s->uk + r * K;
       if (bounded && acc)
         for (int64_t k = 0; k < K; ++k) uk[k] += s->duk[r * K + k];
-      pcf[r] = (double)s->costs[r] + s->lam * (double)overflow(s, p, uk, NULL);
+      const int64_t ovf = overflow(s, p, uk, NULL);
+      if (fpc)
+        pcf[r] = (double)s->costs[r] + s->lam * (double)ovf;
+      else
+        pci[r] = s->costs[r] + s->ilam * ovf;
     }
-    up = bounded ? (double)de + s->pen[r] > 0.0 : de > 0;
+    if (!bounded)
+      up = de > 0;
+    else
+      up = fpc ? (double)de + penf[r] > 0.0 : de + peni[r] > 0;
     if (act && up) {
       s->up_prop[p] += 1;
       s->up_acc[p] += acc;
     }
     s->steps[r] += act;
     int improved;
-    if (het) {
+    if (fpc) {
       improved = act && pcf[r] < bestf[r];
       if (improved) bestf[r] = pcf[r];
     } else {
@@ -323,7 +341,7 @@ int64_t sa_commit(Step *s) {
   for (int64_t j = 0; j < s->n_probs; ++j) {
     const int64_t lo = j * C;
     int64_t r = lo, better;
-    if (het) {
+    if (fpc) {
       double v = pcf[lo];
       for (int64_t c = 1; c < C && v == v; ++c) {
         const double x = pcf[lo + c];

@@ -15,13 +15,10 @@ population initialization.
 
 A full pass runs as one compiled host loop (`nfd_native`) that emits the
 bins with their geometry rows; the Python loop (`nfd_pack_order`) runs the
-local repacks, and the full pass where no C compiler is found.  Both give
-the same bins, rows and draws.
+local repacks.  Both give the same bins, rows and draws.
 
 Spans (`repro_torch.obs`): ``nfd.scratch`` (a full pass), ``nfd.kinds``
 (its inventory-aware kind assignment), ``nfd.repack`` (a local repack).
-Counters: ``nfd.pass.native`` and ``nfd.pass.python``, one a full pass by
-the path that ran it.
 """
 from __future__ import annotations
 
@@ -195,20 +192,8 @@ def nfd_from_scratch(
         order = order[np.argsort(prob.widths[order], kind="stable")]
     if intra_layer:
         order = order[np.argsort(prob.layers[order], kind="stable")]
-    packed = nfd_native.pack_order(prob, order, rng, p_adm_w, p_adm_h, intra_layer)
-    if packed is not None:
-        obs.count("nfd.pass.native")
-        bins, geom = packed
-        sol = Solution._with_geometry(prob, bins, geom, np.zeros(len(bins), dtype=bool))
-    else:
-        obs.count("nfd.pass.python")
-        sol = Solution(
-            prob,
-            nfd_pack_order(
-                prob, order, rng, p_adm_w=p_adm_w, p_adm_h=p_adm_h,
-                intra_layer=intra_layer,
-            ),
-        )
+    bins, geom = nfd_native.pack_order(prob, order, rng, p_adm_w, p_adm_h, intra_layer)
+    sol = Solution._with_geometry(prob, bins, geom, np.zeros(len(bins), dtype=bool))
     # heterogeneous devices: start from an inventory-feasible kind lane
     # (deterministic, no RNG draws; no-op on single-kind problems)
     kinds = obs.begin("nfd.kinds")

@@ -7,10 +7,9 @@ the generator on by exactly the draws that loop would take.
 
 The source compiles with the host's C compiler (``cc -O2 -shared -fPIC``)
 into a library with a plain C interface, loaded with ``ctypes`` at first
-use, never at import, by `hostlib.library` (``build/host/``, named by a hash
-of the source and the flags).  Where no compiler is found, `library`
-returns ``None`` and the caller runs the Python loop, which gives the same
-answer.
+use, never at import, by the port's loader (`repro_torch.native`,
+``build/host/``, named by a hash of the source and the flags).  Where no
+library is built and no C compiler is found, the first use raises.
 
 Spans (`repro_torch.obs`): ``nfd.native.load`` (the first use: find, build
 and load) and ``nfd.native.build`` (the compiler run inside it).
@@ -18,19 +17,15 @@ and load) and ``nfd.native.build`` (the compiler run inside it).
 from __future__ import annotations
 
 import ctypes
-import sys
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from . import hostlib
+from .. import native
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "nfd_pass.c"
-BUILD_DIR = hostlib.BUILD_DIR
-CC_FLAGS = hostlib.CC_FLAGS
-COMPILERS = hostlib.COMPILERS
-SPAN = "nfd.native"
+NATIVE = native.Libraries("nfd.native", native.CC, ("-std=c99", "-O2", "-shared", "-fPIC"),
+                          native.BUILD_ROOT / "host")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -38,10 +33,6 @@ _ARGTYPES = [
     _I64, _P, _P, _P, _P, _I64, _P, _P, _I64, _I64, ctypes.c_int32,
     ctypes.c_double, ctypes.c_double, _P, _I64, _P, _P, _P,
 ]
-
-_UNSET = hostlib.UNSET
-_lib = _UNSET  # the loaded function, or None where no compiler is found
-_lock = threading.Lock()
 
 
 def _bind(cdll):
@@ -51,27 +42,23 @@ def _bind(cdll):
     return fn
 
 
-def library_path() -> Path:
-    return hostlib.library_path(sys.modules[__name__])
-
-
 def library():
     """The compiled ``nfd_pass``, built and loaded at the first call (once,
-    whichever threads ask at once), or ``None`` where no C compiler is found.
-    Raises if the compiler fails."""
-    return hostlib.library(sys.modules[__name__])
+    whichever threads ask at once).  Raises where no C compiler is found or
+    the compiler fails."""
+    return NATIVE.load(SOURCE, _bind)
 
 
 def pack_order(prob, order: np.ndarray, rng: np.random.Generator, p_adm_w: float,
                p_adm_h: float, intra_layer: bool):
     """``(bins, geom)``: the pass over ``order`` (int64) as lists of buffer
     indices and their ``(len(bins), 6)`` int64 geometry rows on kind 0, with
-    ``rng`` moved on as the Python loop moves it; ``None`` (``rng``
-    untouched) where the library is unavailable, the generator is not a
-    numpy ``Generator``, or a mode table holds a size below 1."""
+    ``rng`` moved on as the Python loop moves it.  Raises ``TypeError`` for
+    a generator that is not a numpy ``Generator`` and ``ValueError`` (``rng``
+    untouched) for a mode size below 1."""
+    if not isinstance(rng, np.random.Generator):
+        raise TypeError(f"rng must be a numpy Generator, got {type(rng).__name__}")
     fn = library()
-    if fn is None or not isinstance(rng, np.random.Generator):
-        return None
     order = np.ascontiguousarray(order, dtype=np.int64)
     n = len(order)
     if order.ndim != 1 or (n and (order.min() < 0 or order.max() >= prob.n)):
@@ -95,7 +82,7 @@ def pack_order(prob, order: np.ndarray, rng: np.random.Generator, p_adm_w: float
         starts.ctypes.data, geom.ctypes.data, used.ctypes.data,
     )
     if nb == -1:
-        return None
+        raise ValueError(f"{prob.name}: a mode size below 1 on kind 0")
     if nb < 0:
         raise RuntimeError(f"nfd_pass failed with {nb}")
     if used[0]:

@@ -26,9 +26,9 @@ call goes through the port's kernels.  Three engines share this class:
   block, move application, one ``(C, 2 * swap_moves)`` delta-cost call,
   Metropolis acceptance, rollback of rejected chains — runs over all chains
   at once: the moves, the touched slots' geometry and the commit in one
-  compiled host loop (`sa_native`, ``csrc/sa_step.c``), the draws and the
-  float64 Metropolis compare in numpy, and the same step as numpy array
-  programs where no C compiler is found.  Chains form a temperature ladder
+  compiled host loop (`sa_native`, ``csrc/sa_step.c``, equal bit for bit
+  to the reference's numpy body), the draws and the float64 Metropolis
+  compare in numpy.  Chains form a temperature ladder
   (`_chain_t0s`) with periodic best-chain exchange.  The engine is a
   *fleet* core (`_anneal_block`, P problems x C chains); a single-problem
   run is ``P == 1``.
@@ -838,68 +838,46 @@ class SimulatedAnnealingPacker:
         inside, so every consumer advances the *same* loop body and
         produces bit-identical trajectories.  Consumers must drain
         the generator to ``StopIteration`` so the rebound loop state is
-        written back to ``st``.  A step is three spans (`repro_torch.obs`),
-        each closed before the ``yield``: ``sa.propose`` (which chains are
-        live, the draws and the moves), ``sa.gather`` (the touched slots'
-        geometry), ``sa.accept`` (everything after the delta call).
+        written back to ``st``.
 
         The moves, the planes and the commit run in C (`sa_native`) over
         ``st``'s arrays, bound once a call and again after an exchange
-        rebinds them; the numpy body below runs instead where no C compiler
-        is found or an array does not fit the helper, with the same answer
-        (on a bounded inventory the C path computes the penalty delta in
-        ``sa.gather``, the numpy body in ``sa.accept``).  Counters
-        ``sa.step.native`` / ``sa.step.python`` add this call's steps by the
-        path that ran them."""
+        rebinds them; the draws, the float64 Metropolis compare and the
+        exchange stay in numpy.  A step is three spans (`repro_torch.obs`),
+        each closed before the ``yield``: ``sa.propose`` (which chains are
+        live, the draws and the moves), ``sa.gather`` (the touched slots'
+        geometry, and on a bounded inventory the penalty delta),
+        ``sa.accept`` (everything after the delta call)."""
         limit = (
             self.max_iterations if it_limit is None
             else min(self.max_iterations, it_limit)
         )
-        n_probs, n_chains, n_rows = st.n_probs, self.n_chains, st.n_rows
-        n_moves, width = st.n_moves, 2 * st.n_moves
-        batch, probs, rngs = st.batch, st.probs, st.rngs
+        n_probs, n_chains = st.n_probs, self.n_chains
+        batch, rngs = st.batch, st.rngs
         hetero = st.hetero
         lam = self.inventory_penalty
-        pk = self.p_kind if hetero else 0.0
-        n_kinds, any_bounded = st.n_kinds, st.any_bounded
         t_start = st.t_start
-        pi, caps_r = st.pi, st.caps_r
-        wtab, dtab, ltab, sentinel = st.wtab, st.dtab, st.ltab, st.sentinel
-        poff, t0s, ri = st.poff, st.t0s, st.ri
-        tslots, entry_ok = st.tslots, st.entry_ok
-        up_prop, up_acc = st.up_prop, st.up_acc
-        n_u, u_all, u_metro = st.n_u, st.u_all, st.u_metro
+        wtab, dtab, sentinel = st.wtab, st.dtab, st.sentinel
+        poff, t0s = st.poff, st.t0s
+        u_all, u_metro = st.u_all, st.u_metro
         traces = st.traces
         gbest_pcost, gbest_cost = st.gbest_pcost, st.gbest_cost
         g_items, g_counts, g_live = st.g_items, st.g_counts, st.g_live
         g_kinds, g_UK, UK = st.g_kinds, st.g_UK, st.UK
-        steps = st.steps
-        # rebound across iterations — written back to st on every exit
+        costs, best_pcosts, stale = st.costs, st.best_pcosts, st.stale
+        # rebound by the exchange — written back to st on every exit
         items, counts = st.items, st.counts
         bw, bh, live, bk = st.bw, st.bh, st.live, st.bk
-        costs, pcosts = st.costs, st.pcosts
-        best_pcosts, stale = st.best_pcosts, st.stale
-        it = it0 = st.it
-        # the step body in C over these arrays, or None (the numpy body)
+        pcosts = st.pcosts
+        it = st.it
         nat = sa_native.fleet_step(st, self)
-
-        def row_lookup(tab, ids):
-            """Per-row buffer-table gather (ids row-aligned, any rank)."""
-            if tab.ndim == 1:
-                return tab[ids]
-            rows = pi.reshape((n_rows,) + (1,) * (ids.ndim - 1))
-            return tab[rows, ids]
-
-        def ovf_rows(uk):
-            return batch.overflow_rows(uk, pi)
 
         while it < limit:
             if (it & 0xFF) == 0 and time.perf_counter() - t_start > self.max_seconds:
                 st.done = True
                 break
             tok = obs.begin("sa.propose")
-            active = (stale < self.patience if nat is None
-                      else np.less(stale, self.patience, out=nat.active))
+            active = np.less(stale, self.patience, out=nat.active)
             act_p = active.reshape(n_probs, n_chains).any(axis=1)
             if not act_p.any():
                 obs.end(tok)
@@ -910,215 +888,28 @@ class SimulatedAnnealingPacker:
             # own stream (two extra rows — kind-move gate and kind pick —
             # only on heterogeneous problems, so the single-kind block and
             # its trajectories are untouched); frozen problems draw nothing
-            # and their rows stay masked by ``active`` below
+            # and their rows stay masked by ``active``
             for j in np.flatnonzero(act_p):
                 rngs[j].random(out=u_all[j])  # (n_moves, n_u, n_chains)
-            if nat is not None:
-                nat.propose()
-                obs.end(tok)
-                tok = obs.begin("sa.gather")
-                nat.gather()
-                obs.end(tok)
-                d_e = yield nat.request
-                tok = obs.begin("sa.accept")
-                d_tot = nat.deltas(d_e)
-            else:
-                if hetero:
-                    bk_new = bk.copy()  # flips land here; commit is per-chain
-                snaps = []
-                u_rows = u_all.transpose(1, 2, 0, 3).reshape(n_moves, n_u, n_rows)
-                for m in range(n_moves):
-                    u = u_rows[m]
-                    src = np.minimum((u[0] * live).astype(np.int64), live - 1)
-                    dst = np.minimum((u[1] * live).astype(np.int64), live - 1)
-                    if hetero:
-                        # a chain does a RAM-kind flip of bin ``src`` this move
-                        # instead of a buffer swap
-                        kflip = active & (u[4] < pk)
-                        idxf = np.flatnonzero(kflip)
-                        if idxf.size:
-                            shift = 1 + np.minimum(
-                                (u[5, idxf] * (n_kinds - 1)).astype(np.int64),
-                                n_kinds - 2,
-                            )
-                            bk_new[idxf, src[idxf]] = (
-                                bk_new[idxf, src[idxf]] + shift
-                            ) % n_kinds
-                    else:
-                        kflip = None
-                    ok = active & (live >= 2) & (src != dst)
-                    if hetero:
-                        ok &= ~kflip
-                    cnt_s = counts[ri, src]
-                    ok &= cnt_s > 0
-                    item_k = np.minimum(
-                        (u[2] * cnt_s).astype(np.int64), np.maximum(cnt_s - 1, 0)
-                    )
-                    item = items[ri, src, item_k]  # masked below where ~ok
-                    cnt_d = counts[ri, dst]
-                    item_safe = np.where(item >= 0, item, sentinel)
-                    if self.intra_layer:
-                        dst_first = items[ri, dst, 0]
-                        ok &= (cnt_d == 0) | (
-                            row_lookup(
-                                ltab, np.where(dst_first >= 0, dst_first, sentinel)
-                            )
-                            == row_lookup(ltab, item_safe)
-                        )
-                    full = cnt_d >= caps_r
-                    jd = np.minimum(
-                        (u[3] * cnt_d).astype(np.int64), np.maximum(cnt_d - 1, 0)
-                    )
-                    other = items[ri, dst, jd]
-                    swap = ok & full
-                    if self.intra_layer:
-                        src_first = items[ri, src, 0]
-                        swap &= (
-                            row_lookup(ltab, np.where(other >= 0, other, sentinel))
-                            == row_lookup(
-                                ltab, np.where(src_first >= 0, src_first, sentinel)
-                            )
-                        )
-                    move = ok & ~full
-                    applied = move | swap
-                    # full-row snapshots make rollback a pure scatter
-                    snaps.append(
-                        (src, dst, applied,
-                         items[ri, src], items[ri, dst], cnt_s, cnt_d)
-                    )
-                    idx = np.flatnonzero(swap)
-                    if idx.size:
-                        items[idx, dst[idx], jd[idx]] = item[idx]
-                        items[idx, src[idx], item_k[idx]] = other[idx]
-                    idx = np.flatnonzero(move)
-                    if idx.size:
-                        # remove: swap the picked slot with the last, shrink
-                        items[idx, src[idx], item_k[idx]] = items[
-                            idx, src[idx], cnt_s[idx] - 1
-                        ]
-                        items[idx, src[idx], cnt_s[idx] - 1] = -1
-                        counts[idx, src[idx]] -= 1
-                        # append
-                        items[idx, dst[idx], cnt_d[idx]] = item[idx]
-                        counts[idx, dst[idx]] += 1
-                    tslots[:, 2 * m] = src
-                    tslots[:, 2 * m + 1] = dst
-                    # a kind flip touches only the src slot (geometry unchanged,
-                    # kind lane differs); a swap touches both slots
-                    entry_ok[:, 2 * m] = applied | kflip if hetero else applied
-                    entry_ok[:, 2 * m + 1] = applied
-                # a bin touched twice contributes one delta term (first entry wins)
-                for a in range(1, width):
-                    for b in range(a):
-                        entry_ok[:, a] &= ~(
-                            entry_ok[:, b] & (tslots[:, a] == tslots[:, b])
-                        )
-                obs.end(tok)
-                # --- fused delta-cost step over every chain of every problem:
-                # the touched slots' geometry before and after
-                tok = obs.begin("sa.gather")
-                sel = np.where(entry_ok, tslots, 0)
-                rows = ri[:, None]
-                old_w = np.where(entry_ok, bw[rows, sel], 0).astype(np.int32)
-                old_h = np.where(entry_ok, bh[rows, sel], 0).astype(np.int32)
-                slot_items = items[rows, sel, :]  # (R, width, cap_max)
-                ids = np.where(slot_items >= 0, slot_items, sentinel)
-                new_w = np.where(
-                    entry_ok, row_lookup(wtab, ids).max(-1), 0
-                ).astype(np.int32)
-                new_h = np.where(
-                    entry_ok, row_lookup(dtab, ids).sum(-1), 0
-                ).astype(np.int32)
-                if hetero:
-                    old_k = np.where(entry_ok, bk[rows, sel], 0).astype(np.int32)
-                    new_k = np.where(entry_ok, bk_new[rows, sel], 0).astype(np.int32)
-                    obs.end(tok)
-                    d_e = yield (old_w, old_h, new_w, new_h, old_k, new_k)
-                    tok = obs.begin("sa.accept")
-                    if any_bounded:
-                        # inventory-penalty delta, vectorized over all rows: the
-                        # per-kind primitive usage change of the touched slots
-                        # (mode tables are fleet-shared; counts are per problem)
-                        po = probs[0].bin_primitives_many(old_w, old_h, old_k)
-                        pn = probs[0].bin_primitives_many(new_w, new_h, new_k)
-                        dUK = np.zeros((n_rows, n_kinds), dtype=np.int64)
-                        for kk in range(n_kinds):
-                            dUK[:, kk] = ((new_k == kk) * pn).sum(1) - (
-                                (old_k == kk) * po
-                            ).sum(1)
-                        pen = lam * (ovf_rows(UK + dUK) - ovf_rows(UK))
-                        d_tot = d_e + pen
-                    else:
-                        dUK = None  # unbounded inventory never overflows
-                        d_tot = d_e
-                else:
-                    obs.end(tok)
-                    d_e = yield (old_w, old_h, new_w, new_h, None, None)
-                    tok = obs.begin("sa.accept")
-                    d_tot = d_e
+            nat.propose()
+            obs.end(tok)
+            tok = obs.begin("sa.gather")
+            nat.gather()
+            obs.end(tok)
+            d_e = yield nat.request
+            tok = obs.begin("sa.accept")
+            d_tot = nat.deltas(d_e)
             # --- Metropolis acceptance: per-problem draws, one batched rule
             temps = t0s / (1.0 + self.rc * it)
             for j in np.flatnonzero(act_p):
                 lo = j * n_chains
                 rngs[j].random(out=u_metro[lo : lo + n_chains])
             accept = sa_ops.metropolis_mask(d_tot, temps, u_metro) & active
-            if nat is not None:
-                for j in nat.commit(accept):
-                    traces[j].append((
-                        time.perf_counter() - t_start,
-                        float(gbest_pcost[j]) if hetero else int(gbest_cost[j]),
-                    ))
-            else:
-                # --- roll back rejected chains (reverse move order)
-                reject = ~accept
-                for m in range(n_moves - 1, -1, -1):
-                    src, dst, applied, s_items, d_items, s_cnt, d_cnt = snaps[m]
-                    idx = np.flatnonzero(reject & applied)
-                    if idx.size:
-                        items[idx, dst[idx]] = d_items[idx]
-                        counts[idx, dst[idx]] = d_cnt[idx]
-                        items[idx, src[idx]] = s_items[idx]
-                        counts[idx, src[idx]] = s_cnt[idx]
-                # --- commit accepted chains
-                costs += np.where(accept, d_e, 0)
-                com = entry_ok & accept[:, None]
-                flat = np.flatnonzero(com.ravel())
-                if flat.size:
-                    rr = flat // width
-                    cc = tslots.ravel()[flat]
-                    bw[rr, cc] = new_w.ravel()[flat]
-                    bh[rr, cc] = new_h.ravel()[flat]
-                if hetero:
-                    np.copyto(bk, bk_new, where=accept[:, None])
-                    if dUK is not None:
-                        UK += dUK * accept[:, None]
-                    pcosts = costs + lam * ovf_rows(UK)
-                else:
-                    pcosts = costs
-                uphill = active & (d_tot > 0)
-                up_prop += uphill.reshape(n_probs, n_chains).sum(axis=1)
-                up_acc += (uphill & accept).reshape(n_probs, n_chains).sum(axis=1)
-                # --- per-chain best / patience bookkeeping
-                steps += active
-                improved = active & (pcosts < best_pcosts)
-                best_pcosts = np.where(improved, pcosts, best_pcosts)
-                stale = np.where(improved, 0, np.where(active, stale + 1, stale))
-                # --- per-problem global-best tracking
-                bi = pcosts.reshape(n_probs, n_chains).argmin(axis=1) + poff
-                for j in np.flatnonzero(pcosts[bi] < gbest_pcost):
-                    r = bi[j]
-                    gbest_pcost[j] = pcosts[r]
-                    gbest_cost[j] = costs[r]
-                    g_items[j] = items[r]
-                    g_counts[j] = counts[r]
-                    g_live[j] = live[r]
-                    if hetero:
-                        g_kinds[j] = bk[r]
-                        g_UK[j] = UK[r]
-                    traces[j].append((
-                        time.perf_counter() - t_start,
-                        float(gbest_pcost[j]) if hetero else int(gbest_cost[j]),
-                    ))
+            for j in nat.commit(accept):
+                traces[j].append((
+                    time.perf_counter() - t_start,
+                    float(gbest_pcost[j]) if hetero else int(gbest_cost[j]),
+                ))
             # --- periodic per-problem best-chain exchange + compaction
             # (gated on the loop-top activity mask: a frozen problem's
             # standalone run has already exited its loop, so reviving it
@@ -1143,7 +934,7 @@ class SimulatedAnnealingPacker:
                     best_pcosts[r] = min(best_pcosts[r], gbest_pcost[j])
                     stale[r] = 0
                 if hetero:
-                    pcosts = costs + lam * ovf_rows(UK)
+                    pcosts = costs + lam * batch.overflow_rows(UK, st.pi)
                 order = np.argsort(counts == 0, axis=1, kind="stable")
                 items = np.take_along_axis(items, order[:, :, None], 1)
                 counts = np.take_along_axis(counts, order, 1)
@@ -1152,22 +943,18 @@ class SimulatedAnnealingPacker:
                 if hetero:
                     bk = np.take_along_axis(bk, order, 1)
                 live = (counts > 0).sum(1)
-                if nat is not None:  # the exchange rebound these
-                    nat.bind(items=items, counts=counts, bw=bw, bh=bh, live=live,
-                             pcosts=pcosts, **({"bk": bk} if hetero else {}))
+                nat.bind(items=items, counts=counts, bw=bw, bh=bh, live=live,
+                         pcosts=pcosts, **({"bk": bk} if hetero else {}))
             obs.end(tok)
             it += 1
-        # --- write the rebound loop state back (in-place arrays already land
-        # in st; these are the names the loop rebinds)
+        # --- write the rebound loop state back (the C code and the exchange
+        # write every other array in place)
         st.items, st.counts = items, counts
         st.bw, st.bh, st.live, st.bk = bw, bh, live, bk
-        st.costs, st.pcosts = costs, pcosts
-        st.best_pcosts, st.stale = best_pcosts, stale
+        st.pcosts = pcosts
         st.it = it
         if it >= self.max_iterations:
             st.done = True
-        if it > it0:
-            obs.count("sa.step.python" if nat is None else "sa.step.native", it - it0)
 
     def _block_finish(self, st: _BlockState) -> list[_BlockOut]:
         tok = obs.begin("sa.finish")

@@ -1,21 +1,22 @@
 """The SA fleet step's host code as one compiled host loop (``csrc/sa_step.c``).
 
-`fleet_step` binds a `_BlockState`'s arrays to the three C calls that
-replace the numpy body of `SimulatedAnnealingPacker._block_gen`:
-`FleetStep.propose` (the moves from the step's uniform block),
-`FleetStep.gather` (the request planes, and on a bounded inventory the
-usage change and penalty delta) and `FleetStep.commit` (everything after
-the Metropolis mask).  State, planes, penalty, counters and traces are equal
-bit for bit to the numpy body's; the draws and the Metropolis compare stay
-in numpy.
+`fleet_step` binds a `_BlockState`'s arrays to the three C calls that make
+the step body of `SimulatedAnnealingPacker._block_gen`: `FleetStep.propose`
+(the moves from the step's uniform block), `FleetStep.gather` (the request
+planes, and on a bounded inventory the usage change and penalty delta) and
+`FleetStep.commit` (everything after the Metropolis mask).  State, planes,
+penalty, counters and traces are equal bit for bit to the reference's numpy
+body (`repro.core.sa`); the draws and the Metropolis compare stay in numpy.
 
 The pointers are taken once, when the state is bound (a `_block_gen` call,
 and again after the arrays the exchange rebinds), never per step.  The
-library is built by `hostlib.library` at first use (``build/host/``, no FP
-contraction); ``ctypes.CDLL`` drops the interpreter lock for each call, so
-a sharded fleet's threads overlap.  `fleet_step` returns ``None`` (the
-numpy body runs, with the same answer) where no C compiler is found or an
-array lacks the dtype, shape or C-contiguity the helper needs.
+library is built at first use by the port's loader (`repro_torch.native`,
+``build/host/``, no FP contraction); ``ctypes.CDLL`` drops the interpreter
+lock for each call, so a sharded fleet's threads overlap.  `fleet_step`
+raises ``ValueError`` for an array that lacks the dtype, shape,
+C-contiguity, writability or range the C code indexes by (a state restored
+from a snapshot is input from outside the program), and ``RuntimeError``
+where no library is built and no C compiler is found.
 
 Spans (`repro_torch.obs`): ``sa.native.load`` (the first use: find, build
 and load) and ``sa.native.build`` (the compiler run inside it).
@@ -23,27 +24,20 @@ and load) and ``sa.native.build`` (the compiler run inside it).
 from __future__ import annotations
 
 import ctypes
-import sys
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from . import hostlib
+from .. import native
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sa_step.c"
-BUILD_DIR = hostlib.BUILD_DIR
-CC_FLAGS = ("-std=c99", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
-COMPILERS = hostlib.COMPILERS
-SPAN = "sa.native"
-
-_UNSET = hostlib.UNSET
-_lib = _UNSET  # (propose, gather, commit), or None where no compiler is found
-_lock = threading.Lock()
+NATIVE = native.Libraries(
+    "sa.native", native.CC, ("-std=c99", "-O2", "-ffp-contract=off", "-shared", "-fPIC"),
+    native.BUILD_ROOT / "host")
 
 _I64, _F64, _P = ctypes.c_int64, ctypes.c_double, ctypes.c_void_p
 _INTS = ("n_probs", "n_chains", "n_rows", "n_moves", "n_slots", "cap", "n_kinds", "n_u",
-         "tab_len", "max_modes", "hetero", "intra_layer", "bounded")
+         "tab_len", "max_modes", "hetero", "intra_layer", "bounded", "float_pcosts", "ilam")
 _FLOATS = ("p_kind", "lam")
 _POINTERS = (
     "wtab", "dtab", "ltab", "caps_r", "kind_counts", "kind_weights", "n_modes", "mode_w",
@@ -74,9 +68,9 @@ def _bind(cdll):
 
 def library():
     """``(sa_propose, sa_gather, sa_commit)``, built and loaded at the first
-    call (once, whichever threads ask at once), or ``None`` where no C
-    compiler is found.  Raises if the compiler fails."""
-    return hostlib.library(sys.modules[__name__])
+    call (once, whichever threads ask at once).  Raises where no C compiler
+    is found or the compiler fails."""
+    return NATIVE.load(SOURCE, _bind)
 
 
 class FleetStep:
@@ -101,14 +95,20 @@ class FleetStep:
             mode_w[k, : n_modes[k]] = prob._kind_mode_w[k]
             mode_d[k, : n_modes[k]] = prob._kind_mode_d[k]
         if (n_modes < 1).any() or (mode_w < 1).any() or (mode_d < 1).any():
-            raise _Unfit("a mode size below 1")
+            raise ValueError("a mode size below 1")
+        # penalized costs: int64 on a single-kind fleet (they alias costs)
+        # and under an integer penalty weight, else float64
+        pc = np.dtype(np.int64) if not hetero else getattr(st.pcosts, "dtype", None)
+        if pc not in (np.float64, np.int64):
+            raise ValueError(f"pcosts: dtype {pc} (the helper takes float64 or int64)")
+        lam = packer.inventory_penalty
         s = self._s = _Step(
             n_probs=P, n_chains=C, n_rows=R, n_moves=M, n_slots=NB, cap=CAP, n_kinds=K,
             n_u=st.n_u, tab_len=T, max_modes=mode_w.shape[1], hetero=int(hetero),
             intra_layer=int(bool(packer.intra_layer)), bounded=int(self.bounded),
-            p_kind=float(packer.p_kind) if hetero else 0.0,
-            lam=float(packer.inventory_penalty))
-        i32, i64, pc = np.int32, np.int64, (np.float64 if hetero else np.int64)
+            float_pcosts=int(pc == np.float64), ilam=0 if pc == np.float64 else int(lam),
+            p_kind=float(packer.p_kind) if hetero else 0.0, lam=float(lam))
+        i32, i64 = np.int32, np.int64
         tab = (np.int64, (T,) if P == 1 else (P, T))
         self._spec = dict(
             wtab=tab, dtab=tab, ltab=tab, caps_r=(i64, (R,)), kind_counts=(i64, (P, K)),
@@ -127,7 +127,7 @@ class FleetStep:
         z = np.zeros
         # scratch: a step's inputs, snapshots and outputs, allocated once
         self.active, self.accept = z(R, dtype=np.bool_), z(R, dtype=np.bool_)
-        self.d_e, self.pen, self.improved = z(R, dtype=i64), z(R), z(P, dtype=i64)
+        self.d_e, self.pen, self.improved = z(R, dtype=i64), z(R, dtype=pc), z(P, dtype=i64)
         plane = lambda: z((R, 2 * M), dtype=i32)  # noqa: E731
         self.request = (plane(), plane(), plane(), plane(),
                         plane() if hetero else None, plane() if hetero else None)
@@ -154,7 +154,8 @@ class FleetStep:
                 and 0 <= st.counts.min() and st.counts.max() <= CAP
                 and st.caps_r.max() <= CAP
                 and -1 <= st.items.min() and st.items.max() < T):
-            raise _Unfit("a chain's slots, counts or items are out of range")
+            raise ValueError("items, counts or live: a chain's slots, counts or items "
+                             "are out of range")
         self._addr = ctypes.addressof(s)
 
     def _raw(self, arrays: dict) -> None:
@@ -165,17 +166,21 @@ class FleetStep:
     def bind(self, **arrays) -> None:
         """Point the struct at these arrays (named as its fields: the loop
         rebinds ``items``, ``counts``, ``bw``, ``bh``, ``live``, ``pcosts``
-        and ``bk`` at an exchange); raises `_Unfit` where one lacks the
-        dtype, shape, C-contiguity or writability the helper needs."""
+        and ``bk`` at an exchange); raises ``ValueError`` naming one that
+        lacks the dtype, shape, C-contiguity or writability the helper
+        needs."""
         for name, arr in arrays.items():
             dtype, shape = self._spec[name]
-            if not (isinstance(arr, np.ndarray) and arr.dtype == dtype
-                    and arr.shape == shape and arr.flags.c_contiguous
-                    and arr.flags.writeable):
-                raise _Unfit(name)
+            if not isinstance(arr, np.ndarray):
+                raise ValueError(f"{name}: expected a numpy array, got {type(arr).__name__}")
+            if arr.dtype != dtype or arr.shape != shape:
+                raise ValueError(f"{name}: {arr.dtype}{list(arr.shape)} where the helper "
+                                 f"takes {np.dtype(dtype)}{list(shape)}")
+            if not (arr.flags.c_contiguous and arr.flags.writeable):
+                raise ValueError(f"{name}: not a C-contiguous writable array")
         costs = arrays.get("costs", self._keep.get("costs"))
         if not self.hetero and "pcosts" in arrays and arrays["pcosts"] is not costs:
-            raise _Unfit("pcosts must alias costs on a single-kind fleet")
+            raise ValueError("pcosts: must alias costs on a single-kind fleet")
         self._raw(arrays)
         if "bk" in arrays:
             np.copyto(self._keep["bk_new"], arrays["bk"])
@@ -203,17 +208,8 @@ class FleetStep:
         return self.improved[:n].tolist() if n else []
 
 
-class _Unfit(ValueError):
-    """A state array the helper cannot take (the numpy body runs)."""
-
-
-def fleet_step(st, packer) -> FleetStep | None:
-    """The compiled step over ``st``'s arrays, or ``None`` where the library
-    is unavailable or an array does not fit it."""
-    fns = library()
-    if fns is None:
-        return None
-    try:
-        return FleetStep(fns, st, packer)
-    except _Unfit:
-        return None
+def fleet_step(st, packer) -> FleetStep:
+    """The compiled step over ``st``'s arrays.  Raises ``ValueError`` where
+    an array does not fit it and ``RuntimeError`` where the library cannot
+    be built."""
+    return FleetStep(library(), st, packer)

@@ -2,33 +2,35 @@
 
 Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared`` into its own shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries land in
+``ctypes`` (no PyTorch headers, so a build takes seconds) by the port's one
+loader (`repro_torch.native`, family `KERNELS`).  Libraries land in
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 named by a hash of every source in ``csrc/`` plus the compiler flags, so a
 changed source is rebuilt and a stale library is never loaded.  Nothing here
 runs at import time: the CPU tests import every module on a host without
 ``nvcc``.
+
+Spans (`repro_torch.obs`): ``kernels.load`` (a library's first use) and
+``kernels.build`` (the nvcc run inside it).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 from .. import obs
+from ..native import BUILD_ROOT, Libraries
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_DIR = BUILD_ROOT / "kernels"
 SOURCES = ("binpack_fitness", "binpack_sa_step", "binpack_portfolio_step", "packed_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+KERNELS = Libraries("kernels", ("nvcc", "/usr/local/cuda/bin/nvcc"), NVCC_FLAGS, BUILD_DIR,
+                    include=CSRC)
 
 # the tables' capacity: RT_MAX_KINDS / RT_MAX_MODES in csrc/fitness_rows.cuh
 MAX_KINDS = 4
@@ -165,77 +167,6 @@ def fitness_modes_struct(modes) -> FitnessTables:
     return fitness_tables_struct(((1, modes),))
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_source_hash()}.so"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
-
-
-# Serialises `build` and `load`: the island portfolio's host threads may
-# ask for the same library at once, and one nvcc must write it, not two.
-_BUILD_LOCK = threading.RLock()
-
-
-def build(names=SOURCES) -> dict[str, str]:
-    """Compile every named source that has no up-to-date library, one
-    ``nvcc`` process per source, all started together.  Returns each
-    compiled source's ``ptxas -v`` report (register and spill counts);
-    raises with the compiler's output if any build fails.  Safe to call
-    from several threads: a library being built is built once."""
-    with _BUILD_LOCK:
-        return _build(names)
-
-
-def _build(names) -> dict[str, str]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {}
-    with obs.span("kernels.build"):
-        return _compile(todo)
-
-
-def _compile(todo) -> dict[str, str]:
-    nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        tmp = library_path(name).with_suffix(
-            f".{os.getpid()}-{threading.get_ident()}.tmp"
-        )
-        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    reports, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        reports[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, library_path(name))  # atomic: never a half-written .so
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return reports
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.POINTER(FitnessTables)
@@ -274,36 +205,43 @@ _CHECKED = {
     "binpack_portfolio_step": ("fitness_tables_bytes", "portfolio_threads",
                                "portfolio_max_lanes"),
 }
-_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    for fn in _CHECKED.get(name, ()):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+        if getattr(lib, fn)() != LIBRARY_CONSTANTS[fn]:
+            raise RuntimeError(
+                f"{name}: {fn}() is {getattr(lib, fn)()} in C but "
+                f"{LIBRARY_CONSTANTS[fn]} in build.py"
+            )
+    return lib
+
+
+# each library's source and binding, built once (`load` runs every launch)
+_LIBRARIES = {name: (CSRC / f"{name}.cu", functools.partial(_bind, name)) for name in SOURCES}
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` process per source, all started together.  Returns each
+    compiled source's ``ptxas -v`` report (register and spill counts);
+    raises with the compiler's output if any build fails.  Safe to call
+    from several threads: a library being built is built once."""
+    return KERNELS.build([_LIBRARIES[name][0] for name in names])
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
     needed; every entry point gets explicit ``argtypes`` (``c_void_p`` for
-    pointers and the stream, so no pointer is cut to 32 bits).  Safe to
-    call from several threads: each library is built and loaded once."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    with _BUILD_LOCK, obs.span("kernels.load"):
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        for fn in _CHECKED.get(name, ()):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = ctypes.c_int
-            if getattr(lib, fn)() != LIBRARY_CONSTANTS[fn]:
-                raise RuntimeError(
-                    f"{name}: {fn}() is {getattr(lib, fn)()} in C but "
-                    f"{LIBRARY_CONSTANTS[fn]} in build.py"
-                )
-        _LIBS[name] = lib
-        return lib
+    pointers and the stream, so no pointer is cut to 32 bits) and each
+    checked constant is compared with this module's.  Safe to call from
+    several threads: each library is built and loaded once."""
+    return KERNELS.load(*_LIBRARIES[name])
 
 
 def check_planes(what: str, planes):

@@ -249,8 +249,8 @@ def test_load_from_threads_into_empty_build_dir(tmp_path, monkeypatch):
 
     from repro_torch.kernels import build as build_mod
 
-    monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path / "kernels")
-    monkeypatch.setattr(build_mod, "_LIBS", {})
+    monkeypatch.setattr(build_mod.KERNELS, "build_dir", tmp_path / "kernels")
+    monkeypatch.setattr(build_mod.KERNELS, "loaded", {})
     n_threads = 6
     got = [None] * n_threads
     barrier = threading.Barrier(n_threads)
@@ -268,7 +268,8 @@ def test_load_from_threads_into_empty_build_dir(tmp_path, monkeypatch):
     for name in build_mod.SOURCES:
         assert len({id(g[name]) for g in got}) == 1
     built = sorted(p.name for p in (tmp_path / "kernels").iterdir())
-    assert built == sorted(build_mod.library_path(n).name for n in build_mod.SOURCES)
+    assert built == sorted(build_mod.KERNELS.path(build_mod.CSRC / f"{n}.cu").name
+                           for n in build_mod.SOURCES)
     w, h, k = _planes(np.random.default_rng(5), (3, 40), torch.device("cuda"))
     assert torch.equal(binpack_fitness_cuda(w, h, BRAM18_MODES),
                        binpack_fitness_ref(w, h, BRAM18_MODES).sum(1))

@@ -292,7 +292,7 @@ def test_kernels_build_nothing_at_import():
         "repro_torch.kernels.binpack_portfolio_step, repro_torch.memory, "
         "repro_torch.kernels.packed_gather, repro_torch.convert\n"
         "from repro_torch.kernels import build\n"
-        "assert build._LIBS == {}\n"
+        "assert build.KERNELS.loaded == {}\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="/nonexistent")

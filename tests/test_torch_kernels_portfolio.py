@@ -241,9 +241,9 @@ def test_load_builds_each_library_once_across_threads(tmp_path, monkeypatch):
             setattr(self, fn, entry)
             return entry
 
-    monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path / "kernels")
-    monkeypatch.setattr(build_mod, "_LIBS", {})
-    monkeypatch.setattr(build_mod, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build_mod.KERNELS, "build_dir", tmp_path / "kernels")
+    monkeypatch.setattr(build_mod.KERNELS, "loaded", {})
+    monkeypatch.setattr(build_mod.KERNELS, "compilers", (str(fake),))
     monkeypatch.setattr(build_mod.ctypes, "CDLL", FakeLib)
 
     n_threads = 8
@@ -267,5 +267,5 @@ def test_load_builds_each_library_once_across_threads(tmp_path, monkeypatch):
     )
     for name in build_mod.SOURCES:
         assert len({id(g[name]) for g in got}) == 1
-        assert build_mod.library_path(name).read_text() == "library"
+        assert build_mod.KERNELS.path(build_mod.CSRC / f"{name}.cu").read_text() == "library"
     assert not list((tmp_path / "kernels").glob("*.tmp"))

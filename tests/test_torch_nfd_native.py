@@ -7,8 +7,8 @@ computes for them, and the generator's whole state afterwards, buffered
 each pass).  Cases run over every Table-1 accelerator, on BRAM18 and on an
 Alveo U50's inventory, and over the admission rule's knobs; then
 `nfd_from_scratch` and whole GA-NFD / SA-S packs are held to
-`repro.core`'s, and the Python fallback and the first use from four
-threads are checked.
+`repro.core`'s, inputs the pass cannot take and a host without a compiler
+are refused, and the first use from four threads is checked.
 """
 import os
 import subprocess
@@ -20,7 +20,6 @@ import pytest
 
 import repro.core as ref
 import repro_torch.core as port
-from repro_torch import obs
 from repro_torch.core import nfd, nfd_native
 from repro_torch.core.problem import Solution
 
@@ -106,9 +105,7 @@ def test_nfd_from_scratch_equals_reference(name, device, sort_by_width, intra_la
     kw = dict(p_adm_w=hp["p_adm_w"], p_adm_h=hp["p_adm_h"], intra_layer=intra_layer,
               sort_by_width=sort_by_width)
     ra, rb = _rng(3), _rng(3)
-    before = obs.counter("nfd.pass.native")
     got = nfd.nfd_from_scratch(port.get_problem(name, device=device), ra, **kw)
-    assert obs.counter("nfd.pass.native") == before + 1
     expect = ref.nfd_from_scratch(ref.get_problem(name, device=device), rb, **kw)
     assert got.bins == [list(b) for b in expect.bins]
     assert got.kinds.tolist() == [int(k) for k in expect.kinds]
@@ -123,40 +120,34 @@ def _key(r):
 
 @pytest.mark.parametrize("seed", [0, 2**31 + 9])
 @pytest.mark.parametrize("device", DEVICES, ids=["bram18", "u50"])
-@pytest.mark.parametrize("algorithm,kw,passes", [
-    ("ga-nfd", dict(n_pop=12, max_generations=8), 12),
-    ("sa-s", dict(n_chains=6, max_iterations=120), 6),
+@pytest.mark.parametrize("algorithm,kw", [
+    ("ga-nfd", dict(n_pop=12, max_generations=8)),
+    ("sa-s", dict(n_chains=6, max_iterations=120)),
 ], ids=["ga-nfd", "sa-s"])
-def test_pack_equals_reference_seed_for_seed(algorithm, kw, passes, device, seed):
+def test_pack_equals_reference_seed_for_seed(algorithm, kw, device, seed):
     name = "RN50-W1A2"
     kw = dict(ref.hyperparams(name), seed=seed, max_seconds=1e9, **kw)
     expect = _key(ref.pack(ref.get_problem(name, device=device), algorithm,
                            backend="python", **kw))
-    before = obs.counter("nfd.pass.native")
     got = port.pack(port.get_problem(name, device=device), algorithm, backend="torch",
                     device="cpu", **kw)
     assert _key(got) == expect
-    assert obs.counter("nfd.pass.native") - before == passes
+
+
+def _no_compiler(monkeypatch, tmp_path):
+    """An empty build directory and a compiler search that finds nothing."""
+    monkeypatch.setattr(nfd_native.NATIVE, "build_dir", tmp_path / "host")
+    monkeypatch.setattr(nfd_native.NATIVE, "compilers", ("no-such-compiler-here",))
+    monkeypatch.setattr(nfd_native.NATIVE, "loaded", {})
 
 
 @pytest.mark.parametrize("device", DEVICES, ids=["bram18", "u50"])
-def test_python_loop_runs_without_a_compiler(monkeypatch, device):
-    prob = port.get_problem("RN50-W1A2", device=device)
-    expect = nfd.nfd_from_scratch(prob, _rng(8), sort_by_width=True)
-    monkeypatch.setattr(nfd_native, "library", lambda: None)
-    py, native = obs.counter("nfd.pass.python"), obs.counter("nfd.pass.native")
-    rng = _rng(8)
-    got = nfd.nfd_from_scratch(prob, rng, sort_by_width=True)
-    assert (obs.counter("nfd.pass.python"), obs.counter("nfd.pass.native")) == (py + 1, native)
-    assert got.bins == expect.bins and got.kinds.tolist() == expect.kinds.tolist()
-    assert got.cost() == expect.cost() == got.cost_full()
-    assert rng.bit_generator.state == _after(prob, 8)
-
-
-def _after(prob, seed):
-    rng = _rng(seed)
-    nfd.nfd_from_scratch(prob, rng, sort_by_width=True)
-    return rng.bit_generator.state
+def test_pack_raises_without_a_compiler(monkeypatch, tmp_path, device):
+    _no_compiler(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="nfd.native libraries: searched no-such-compiler"):
+        port.pack(port.get_problem("RN50-W1A2", device=device), "ga-nfd", n_pop=12,
+                  max_generations=8, max_seconds=1e9, seed=8, backend="torch", device="cpu")
+    assert not (tmp_path / "host").exists()
 
 
 def test_order_outside_the_problem_is_refused():
@@ -166,11 +157,27 @@ def test_order_outside_the_problem_is_refused():
             nfd_native.pack_order(prob, order, _rng(0), 0.0, 0.1, False)
 
 
+def test_a_generator_or_mode_table_the_pass_cannot_take_is_refused(monkeypatch):
+    """A generator that is not a numpy ``Generator``, or a mode of size 0
+    (the Python loop would divide by it): refused, the generator untouched."""
+    prob = port.get_problem("CNV-W1A1")
+    order = np.arange(prob.n)
+    with pytest.raises(TypeError, match="numpy Generator"):
+        nfd_native.pack_order(prob, order, np.random.RandomState(0), 0.0, 0.1, False)
+    mode_w = prob._kind_mode_w[0].copy()
+    mode_w[-1] = 0
+    monkeypatch.setattr(prob, "_kind_mode_w", [mode_w] + prob._kind_mode_w[1:])
+    rng = _rng(0)
+    state = rng.bit_generator.state
+    with pytest.raises(ValueError, match="mode size below 1"):
+        nfd_native.pack_order(prob, order, rng, 0.0, 0.1, False)
+    assert rng.bit_generator.state == state
+
+
 def test_compiler_search_finds_nothing_without_one(monkeypatch, tmp_path):
-    monkeypatch.setattr(nfd_native, "BUILD_DIR", tmp_path / "host")
-    monkeypatch.setattr(nfd_native, "COMPILERS", ("no-such-compiler-here",))
-    monkeypatch.setattr(nfd_native, "_lib", nfd_native._UNSET)
-    assert nfd_native.library() is None
+    _no_compiler(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="searched no-such-compiler-here"):
+        nfd_native.library()
     assert not (tmp_path / "host").exists()
 
 
@@ -179,11 +186,12 @@ import sys, threading
 from pathlib import Path
 sys.setswitchinterval(1e-6)
 import numpy as np
+import repro.core as ref
 import repro_torch.core as c
 from repro_torch import obs
 from repro_torch.core import nfd, nfd_native
 
-nfd_native.BUILD_DIR = Path(sys.argv[1])
+nfd_native.NATIVE.build_dir = Path(sys.argv[1])
 prob = c.get_problem("CNV-W2A2")
 gate = threading.Barrier(4)
 out = [None] * 4
@@ -200,11 +208,12 @@ with obs.recording() as rec:
         t.start()
     for t in threads:
         t.join()
-nfd_native._lib = None  # the Python loop, for the expected answers
-expect = [nfd.nfd_from_scratch(prob, np.random.default_rng(k)).bins for k in range(4)]
+rprob = ref.get_problem("CNV-W2A2")
+expect = [[list(b) for b in ref.nfd_from_scratch(rprob, np.random.default_rng(k)).bins]
+          for k in range(4)]
 assert out == expect
 print(rec.count("nfd.native.load"), rec.count("nfd.native.build"),
-      rec.counters.get("nfd.pass.native", 0), len(list(nfd_native.BUILD_DIR.iterdir())))
+      len(list(nfd_native.NATIVE.build_dir.iterdir())))
 """
 
 
@@ -215,4 +224,4 @@ def test_first_use_from_four_threads_builds_and_loads_once(tmp_path):
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr[-4000:]
-    assert out.stdout.split() == ["1", "1", "4", "1"]
+    assert out.stdout.split() == ["1", "1", "1"]

@@ -239,9 +239,9 @@ def test_kernel_load_and_build_are_spans(tmp_path, monkeypatch):
             setattr(self, fn, entry)
             return entry
 
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
-    monkeypatch.setattr(build, "_LIBS", {})
-    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build.KERNELS, "build_dir", tmp_path / "kernels")
+    monkeypatch.setattr(build.KERNELS, "loaded", {})
+    monkeypatch.setattr(build.KERNELS, "compilers", (str(fake),))
     monkeypatch.setattr(build.ctypes, "CDLL", FakeLib)
     with obs.recording() as rec:
         build.load("packed_gather")

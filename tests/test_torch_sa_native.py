@@ -1,20 +1,21 @@
 """The SA fleet step through the compiled host loop (`core/sa_native.py`,
-``csrc/sa_step.c``) against the numpy body and the reference, bit for bit.
+``csrc/sa_step.c``) against the reference's numpy body, bit for bit.
 
-Two twins of one `_BlockState` advance in lockstep, one through the helper
-and one through the numpy body (the library set to ``None`` while its
-generator starts): at every step request the planes, every state array (the
-generators' own rebound locals), the scratch slots and every generator's
-whole state (buffered 32-bit half set by an ``rng.integers`` first) must be
-equal, and the helper's usage change and penalty delta must equal the
-reference's formula on the planes; at the end the state written back.  The
-cases run every Table-1 accelerator on BRAM18 and on an Alveo U50 x
-``intra_layer`` x ``swap_moves`` 1-3, one problem and fleets of three, with
-an exchange and compaction every 4 steps.  Then whole packs, a sweep, a
-resumed sweep and a portfolio are held to `repro.core`'s, the numpy body's
-fallbacks are checked, and the first use from four threads.
+Two twins advance in lockstep, the port's `_block_gen` (the helper) and the
+reference's (`repro.core.sa`, the numpy body), started from equal problems
+and generators and both answered by the port's `_block_eval`: at every step
+request the planes, every state array with its dtype (the generators' own
+rebound locals over the state's fields) and every generator's whole state
+(buffered 32-bit half set by an ``rng.integers`` first) must be equal, and
+the helper's usage change and penalty delta must equal the reference's
+formula on the planes; at the end the state written back.  The cases run
+every Table-1 accelerator on BRAM18 and on an Alveo U50 x ``intra_layer`` x
+``swap_moves`` 1-3, one problem and fleets of three, with an exchange and
+compaction every 4 steps, two-kind inventories under a float and an integer
+penalty weight.  Then whole packs, a sweep, a resumed sweep and a portfolio
+are held to `repro.core`'s, states the helper cannot take and a host without
+a compiler are refused, and the first use from four threads is checked.
 """
-import copy
 import os
 import subprocess
 import sys
@@ -25,7 +26,7 @@ import pytest
 
 import repro.core as ref
 import repro_torch.core as port
-from repro_torch import obs
+from repro.core.sa import SimulatedAnnealingPacker as RefPacker
 from repro_torch.core import sa_native
 from repro_torch.core.sa import SimulatedAnnealingPacker
 
@@ -46,34 +47,20 @@ def _rng(seed):
 
 def _twins(names, device, intra_layer, swap_moves, seed, steps, n_chains=3, probs=None,
            **kw):
-    packer = SimulatedAnnealingPacker(
-        perturbation="swap", n_chains=n_chains, intra_layer=intra_layer,
-        swap_moves=swap_moves, exchange_every=4, max_iterations=steps, max_seconds=1e9,
-        patience=10**9, backend="python", device="cpu", **kw,
-        **{k: v for k, v in port.hyperparams(names[0]).items() if k in ("p_adm_w", "p_adm_h")})
-    probs = probs or [port.get_problem(n, device=device) for n in names]
-    st = packer._block_start(probs, [_rng(seed + j) for j in range(len(probs))],
-                             [[] for _ in probs], "python")
-    twin = copy.copy(st)
-    for k, v in vars(st).items():
-        if isinstance(v, np.ndarray):
-            setattr(twin, k, v.copy())
-    if not st.hetero:
-        twin.pcosts = twin.costs  # the alias `_block_start` makes
-    twin.rngs = [copy.deepcopy(r) for r in st.rngs]
-    twin.traces = [list(t) for t in st.traces]
-    return packer, st, twin
-
-
-def _numpy_gen(packer, st):
-    """`_block_gen` started with the library unavailable (the numpy body)."""
-    saved = sa_native._lib
-    sa_native._lib = None
-    try:
-        gen = packer._block_gen(st)
-        return gen, next(gen, None)
-    finally:
-        sa_native._lib = saved
+    """The port's packer and fleet state and the reference's, equal;
+    ``probs(pkg)`` builds the fleet's problems in either package."""
+    kw = dict(perturbation="swap", n_chains=n_chains, intra_layer=intra_layer,
+              swap_moves=swap_moves, exchange_every=4, max_iterations=steps,
+              max_seconds=1e9, patience=10**9, backend="python", **kw,
+              **{k: v for k, v in port.hyperparams(names[0]).items()
+                 if k in ("p_adm_w", "p_adm_h")})
+    probs = probs or (lambda pkg: [pkg.get_problem(n, device=device) for n in names])
+    packer, ref_packer = SimulatedAnnealingPacker(device="cpu", **kw), RefPacker(**kw)
+    st, twin = (
+        pk._block_start(ps, [_rng(seed + j) for j in range(len(ps))], [[] for _ in ps],
+                        "python")
+        for pk, ps in ((packer, probs(port)), (ref_packer, probs(ref))))
+    return packer, ref_packer, st, twin
 
 
 def _send(gen, d_e):
@@ -97,6 +84,12 @@ def _expected_penalty(st, req, lam):
     return duk, pen
 
 
+def _live(st, gen):
+    """A running generator's state: its rebound locals over ``st``'s
+    fields (which every array updated in place is)."""
+    return {**vars(st), **gen.gi_frame.f_locals}
+
+
 def _states_equal(a, b):
     for name in STATE:
         x, y = a[name], b[name]
@@ -107,14 +100,25 @@ def _states_equal(a, b):
         np.testing.assert_array_equal(x, y, err_msg=name)
 
 
-def run_lockstep(packer, st, twin):
-    """Advance ``st`` through the helper and ``twin`` through the numpy body
-    to the end of the budget, checking every step; returns the steps."""
+def _drain(packer, ref_packer, st, twin):
+    """Run the reference's generator over ``twin`` to its end, answered by
+    the port's `_block_eval`."""
+    gen = ref_packer._block_gen(twin)
+    req = next(gen, None)
+    while req is not None:
+        req = _send(gen, packer._block_eval(st, req))
+
+
+def run_lockstep(packer, ref_packer, st, twin):
+    """Advance ``st`` through the port's generator and ``twin`` through the
+    reference's to the end of the budget, checking every step; returns the
+    steps."""
     gen_a = packer._block_gen(st)
     req_a = next(gen_a, None)
-    gen_b, req_b = _numpy_gen(packer, twin)
+    gen_b = ref_packer._block_gen(twin)
+    req_b = next(gen_b, None)
     nat = gen_a.gi_frame.f_locals["nat"]
-    assert nat is not None and gen_b.gi_frame.f_locals["nat"] is None
+    assert isinstance(nat, sa_native.FleetStep)
     n = 0
     while req_a is not None:
         assert req_b is not None
@@ -124,14 +128,14 @@ def run_lockstep(packer, st, twin):
             else:
                 assert x.dtype == y.dtype == np.int32
                 np.testing.assert_array_equal(x, y)
-        _states_equal(gen_a.gi_frame.f_locals, gen_b.gi_frame.f_locals)
+        _states_equal(_live(st, gen_a), _live(twin, gen_b))
         assert [r.bit_generator.state for r in st.rngs] == [
             r.bit_generator.state for r in twin.rngs]
         if nat.bounded:
-            duk, pen = _expected_penalty(st, req_b, packer.inventory_penalty)
+            duk, pen = _expected_penalty(st, req_a, packer.inventory_penalty)
             np.testing.assert_array_equal(nat._keep["duk"], duk)
-            assert nat.pen.tobytes() == pen.astype(np.float64).tobytes()
-        d_e = packer._block_eval(twin, req_b)
+            assert nat.pen.dtype == pen.dtype and nat.pen.tobytes() == pen.tobytes()
+        d_e = packer._block_eval(st, req_b)
         req_a, req_b = _send(gen_a, d_e), _send(gen_b, d_e)
         n += 1
     assert req_b is None
@@ -150,11 +154,9 @@ def test_step_equals_numpy_body_on_table1(name, device):
     k = port.ACCELERATORS.index(name)
     for intra_layer in (False, True):
         for swap_moves in (1, 2, 3):
-            packer, st, twin = _twins([name], device, intra_layer, swap_moves,
-                                      2**31 + 7 * k + swap_moves, 40)
-            before = obs.counter("sa.step.native")
-            assert run_lockstep(packer, st, twin) == 40
-            assert obs.counter("sa.step.native") - before == 40
+            twins = _twins([name], device, intra_layer, swap_moves,
+                           2**31 + 7 * k + swap_moves, 40)
+            assert run_lockstep(*twins) == 40
 
 
 FLEETS = [port.ACCELERATORS[0:3], port.ACCELERATORS[3:6], port.ACCELERATORS[5:8]]
@@ -165,9 +167,18 @@ FLEETS = [port.ACCELERATORS[0:3], port.ACCELERATORS[3:6], port.ACCELERATORS[5:8]
 def test_fleet_of_three_equals_numpy_body(device, intra_layer):
     """Fleets of three problems on 2-D tables, ``swap_moves`` 1-3."""
     for swap_moves, names in zip((1, 2, 3), FLEETS):
-        packer, st, twin = _twins(list(names), device, intra_layer, swap_moves, 11, 60)
-        assert st.wtab.ndim == 2
-        assert run_lockstep(packer, st, twin) == 60
+        twins = _twins(list(names), device, intra_layer, swap_moves, 11, 60)
+        assert twins[2].wtab.ndim == 2
+        assert run_lockstep(*twins) == 60
+
+
+def _inventory(counts):
+    """DoReFaNet and CNV-W1A1 on two RAM kinds with these counts."""
+    def probs(pkg):
+        ocm = pkg.OCMInventory((pkg.BRAM18, pkg.URAM288), counts, name="inv")
+        return [pkg.PackingProblem(pkg.get_buffers(n), ocm=ocm, name=n)
+                for n in ("DoReFaNet", "CNV-W1A1")]
+    return probs
 
 
 @pytest.mark.parametrize("counts,lam", [((40, 2), 0.1), ((-1, -1), 32.0), ((-1, 3), 32.0)],
@@ -176,13 +187,10 @@ def test_inventories_equal_numpy_body(counts, lam):
     """Two RAM kinds on an inventory that overflows (the penalty moves, at a
     weight whose products round), on one with no bounds (no penalty delta,
     float64 penalized costs) and on one with a bound on one kind."""
-    ocm = port.OCMInventory((port.BRAM18, port.URAM288), counts, name="inv")
-    probs = [port.PackingProblem(port.get_buffers(n), ocm=ocm, name=n)
-             for n in ("DoReFaNet", "CNV-W1A1")]
-    packer, st, twin = _twins(["DoReFaNet"], None, False, 2, 17, 80, n_chains=4,
-                              probs=probs, inventory_penalty=lam)
+    packer, ref_packer, st, twin = _twins(["DoReFaNet"], None, False, 2, 17, 80, n_chains=4,
+                                          probs=_inventory(counts), inventory_penalty=lam)
     assert st.hetero and st.any_bounded == (counts != (-1, -1))
-    assert run_lockstep(packer, st, twin) == 80
+    assert run_lockstep(packer, ref_packer, st, twin) == 80
     if counts == (40, 2):
         assert (st.pcosts != st.costs).all()
 
@@ -191,13 +199,13 @@ def test_inventories_equal_numpy_body(counts, lam):
 def test_first_of_tied_chains_is_the_best_copied(device):
     """Chains tied on the least cost, below the problem's best: the one
     copied is the first of them, as numpy's argmin takes it."""
-    packer, st, twin = _twins(["CNV-W2A2"], device, False, 1, 23, 1, n_chains=6)
+    packer, ref_packer, st, twin = _twins(["CNV-W2A2"], device, False, 1, 23, 1, n_chains=6)
     for x in (st, twin):
         x.stale[1:] = packer.patience  # only chain 0 moves
         x.costs[0], x.costs[1:] = 10**6, 50
         x.gbest_pcost[:] = 10**9
     assert not np.array_equal(st.items[1], st.items[5])
-    assert run_lockstep(packer, st, twin) == 1
+    assert run_lockstep(packer, ref_packer, st, twin) == 1
     assert st.gbest_cost[0] == 50
     np.testing.assert_array_equal(st.g_items[0], st.items[1])
 
@@ -205,15 +213,13 @@ def test_first_of_tied_chains_is_the_best_copied(device):
 def test_frozen_problems_and_a_run_cut_at_barriers():
     """Patience freezes a fleet's problems one by one (they stop drawing);
     barriers every 7 steps rebuild the helper's pointers, equal to one
-    numpy run."""
-    packer, st, twin = _twins(["CNV-W2A2", "CNV-W1A1", "Tincy-YOLO"], "U50", False, 2, 5,
-                              400)
-    packer.patience = 25
+    uninterrupted run of the reference."""
+    packer, ref_packer, st, twin = _twins(["CNV-W2A2", "CNV-W1A1", "Tincy-YOLO"], "U50",
+                                          False, 2, 5, 400)
+    packer.patience = ref_packer.patience = 25
     while not st.done:
         packer._block_run(st, st.it + 7)
-    gen, req = _numpy_gen(packer, twin)
-    while req is not None:
-        req = _send(gen, packer._block_eval(twin, req))
+    _drain(packer, ref_packer, st, twin)
     assert st.frozen and twin.frozen and st.it == twin.it < 400
     _states_equal(vars(st), vars(twin))
     assert [r.bit_generator.state for r in st.rngs] == [
@@ -233,12 +239,9 @@ def test_pack_equals_reference_seed_for_seed(name, n_chains, device):
               max_seconds=1e9, exchange_every=16)
     expect = _key(ref.pack(ref.get_problem(name, device=device), "sa-s", backend="python",
                            **kw))
-    native, python = obs.counter("sa.step.native"), obs.counter("sa.step.python")
     got = port.pack(port.get_problem(name, device=device), "sa-s", backend="cuda",
                     device="cpu", **kw)
     assert _key(got) == expect
-    assert obs.counter("sa.step.native") - native == 150
-    assert obs.counter("sa.step.python") == python
 
 
 def _sweep_record(sw):
@@ -256,11 +259,9 @@ SWEEP_KW = dict(seeds=[0, 2**31 + 1, 2, 3, 4], n_chains=4, max_iterations=200,
 def test_sweep_equals_reference():
     want = ref.pack_sweep([ref.get_problem(n, device=d) for n, d in SWEEP], "sa-s",
                           **SWEEP_KW)
-    native = obs.counter("sa.step.native")
     got = port.pack_sweep([port.get_problem(n, device=d) for n, d in SWEEP], "sa-s",
                           backend="torch", device="cpu", **SWEEP_KW)
     assert _sweep_record(got) == _sweep_record(want)
-    assert obs.counter("sa.step.native") - native == 2 * 200  # two groups
 
 
 def test_resumed_sweep_equals_uninterrupted(tmp_path):
@@ -289,47 +290,55 @@ def test_portfolio_with_sa_islands_equals_reference():
               max_generations=4, max_seconds=1e9, patience=10**9, seed=9)
     want = ref.pack_portfolio(ref.get_problem("Tincy-YOLO", device="U50"), backend="python",
                               **kw)
-    native = obs.counter("sa.step.native")
     got = port.pack_portfolio(port.get_problem("Tincy-YOLO", device="U50"), backend="cuda",
                               device="cpu", **kw)
     assert got.params["fused"] is True
     assert (got.cost, got.solution.state_dict(), got.iterations) == (
         want.cost, want.solution.state_dict(), want.iterations)
     assert [c for _, c in got.trace] == [c for _, c in want.trace]
-    assert obs.counter("sa.step.native") > native
+
+
+def _no_compiler(monkeypatch, tmp_path):
+    """An empty build directory and a compiler search that finds nothing."""
+    monkeypatch.setattr(sa_native.NATIVE, "build_dir", tmp_path / "host")
+    monkeypatch.setattr(sa_native.NATIVE, "compilers", ("no-such-compiler-here",))
+    monkeypatch.setattr(sa_native.NATIVE, "loaded", {})
 
 
 @pytest.mark.parametrize("device", DEVICES, ids=["bram18", "u50"])
-def test_numpy_body_runs_without_a_compiler(monkeypatch, device):
-    prob = port.get_problem("Tincy-YOLO", device=device)
-    kw = dict(n_chains=6, max_iterations=120, max_seconds=1e9, seed=4, backend="python",
-              device="cpu", exchange_every=8)
-    expect = _key(port.pack(prob, "sa-s", **kw))
-    monkeypatch.setattr(sa_native, "library", lambda: None)
-    native, python = obs.counter("sa.step.native"), obs.counter("sa.step.python")
-    assert _key(port.pack(prob, "sa-s", **kw)) == expect
-    assert obs.counter("sa.step.python") - python == 120
-    assert obs.counter("sa.step.native") == native
+def test_pack_raises_without_a_compiler(monkeypatch, tmp_path, device):
+    _no_compiler(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="sa.native libraries: searched no-such-compiler"):
+        port.pack(port.get_problem("Tincy-YOLO", device=device), "sa-s", n_chains=6,
+                  max_iterations=120, max_seconds=1e9, seed=4, backend="python",
+                  device="cpu", exchange_every=8)
+    assert not (tmp_path / "host").exists()
 
 
-def test_an_integer_penalty_takes_the_numpy_body():
-    """An ``int`` inventory penalty makes the penalized costs int64, which
-    the helper does not take: the numpy body runs, with the numpy answer."""
-    prob = port.get_problem("CNV-W1A1", device="U50")
+def test_an_integer_penalty_runs_the_helper_equal_to_reference():
+    """An ``int`` inventory penalty makes the penalized costs int64 on a
+    multi-kind fleet: the helper takes them, step for step equal to the
+    reference on an inventory that overflows, and whole packs @U50 too."""
+    packer, ref_packer, st, twin = _twins(["DoReFaNet"], None, False, 2, 29, 80, n_chains=4,
+                                          probs=_inventory((40, 2)), inventory_penalty=3)
+    assert st.pcosts.dtype == twin.pcosts.dtype == np.int64
+    assert run_lockstep(packer, ref_packer, st, twin) == 80
+    assert (st.pcosts != st.costs).all()
     kw = dict(n_chains=4, max_iterations=80, max_seconds=1e9, seed=1, backend="python",
-              device="cpu", inventory_penalty=3)
-    python = obs.counter("sa.step.python")
-    got = port.pack(prob, "sa-s", **kw)
-    assert obs.counter("sa.step.python") - python == 80
+              inventory_penalty=3)
+    got = port.pack(port.get_problem("CNV-W1A1", device="U50"), "sa-s", device="cpu", **kw)
     expect = ref.pack(ref.get_problem("CNV-W1A1", device="U50"), "sa-s", **kw)
     assert _key(got) == _key(expect)
 
 
-@pytest.mark.parametrize("spoil", ["item-id", "count", "live", "strided", "read-only"])
-def test_a_state_the_helper_cannot_take_is_refused(spoil):
+@pytest.mark.parametrize("spoil,match", [
+    ("item-id", "out of range"), ("count", "out of range"), ("live", "out of range"),
+    ("strided", "bw"), ("read-only", "costs")],
+    ids=["item-id", "count", "live", "strided", "read-only"])
+def test_a_state_the_helper_cannot_take_is_refused(spoil, match):
     """Values the C code indexes by, out of range, or an array it cannot
-    point at: `fleet_step` refuses the state (the numpy body runs)."""
-    packer, st, _ = _twins(["CNV-W1A1"], "U50", False, 2, 3, 10)
+    point at: `fleet_step` raises, naming what it refused."""
+    packer, _, st, _ = _twins(["CNV-W1A1"], "U50", False, 2, 3, 10)
     assert isinstance(sa_native.fleet_step(st, packer), sa_native.FleetStep)
     if spoil == "item-id":
         st.items[0, 0, 0] = st.wtab.shape[-1]
@@ -341,14 +350,14 @@ def test_a_state_the_helper_cannot_take_is_refused(spoil):
         st.bw = np.asfortranarray(st.bw)
     else:
         st.costs.flags.writeable = False
-    assert sa_native.fleet_step(st, packer) is None
+    with pytest.raises(ValueError, match=match):
+        sa_native.fleet_step(st, packer)
 
 
 def test_compiler_search_finds_nothing_without_one(monkeypatch, tmp_path):
-    monkeypatch.setattr(sa_native, "BUILD_DIR", tmp_path / "host")
-    monkeypatch.setattr(sa_native, "COMPILERS", ("no-such-compiler-here",))
-    monkeypatch.setattr(sa_native, "_lib", sa_native._UNSET)
-    assert sa_native.library() is None
+    _no_compiler(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="searched no-such-compiler-here"):
+        sa_native.library()
     assert not (tmp_path / "host").exists()
 
 
@@ -356,20 +365,21 @@ FIRST_USE = r"""
 import sys, threading
 from pathlib import Path
 sys.setswitchinterval(1e-6)
+import repro.core as ref
 import repro_torch.core as c
 from repro_torch import obs
 from repro_torch.core import sa_native
 
-sa_native.BUILD_DIR = Path(sys.argv[1])
+sa_native.NATIVE.build_dir = Path(sys.argv[1])
 prob = c.get_problem("CNV-W2A2", device="U50")
-kw = dict(n_chains=4, max_iterations=50, max_seconds=1e9, backend="python", device="cpu")
+kw = dict(n_chains=4, max_iterations=50, max_seconds=1e9, backend="python")
 gate = threading.Barrier(4)
 out = [None] * 4
 
 
 def run(k):
     gate.wait()
-    out[k] = c.pack(prob, "sa-s", seed=k, **kw).solution.state_dict()
+    out[k] = c.pack(prob, "sa-s", seed=k, device="cpu", **kw).solution.state_dict()
 
 
 with obs.recording() as rec:
@@ -378,11 +388,11 @@ with obs.recording() as rec:
         t.start()
     for t in threads:
         t.join()
-sa_native._lib = None  # the numpy body, for the expected answers
-expect = [c.pack(prob, "sa-s", seed=k, **kw).solution.state_dict() for k in range(4)]
+rprob = ref.get_problem("CNV-W2A2", device="U50")
+expect = [ref.pack(rprob, "sa-s", seed=k, **kw).solution.state_dict() for k in range(4)]
 assert out == expect
 print(rec.count("sa.native.load"), rec.count("sa.native.build"),
-      rec.counters.get("sa.step.native", 0), len(list(sa_native.BUILD_DIR.iterdir())))
+      len(list(sa_native.NATIVE.build_dir.iterdir())))
 """
 
 
@@ -393,4 +403,4 @@ def test_first_use_from_four_threads_builds_and_loads_once(tmp_path):
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr[-4000:]
-    assert out.stdout.split() == ["1", "1", "200", "1"]
+    assert out.stdout.split() == ["1", "1", "1"]

@@ -100,8 +100,9 @@ def start_build() -> subprocess.Popen:
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o", str(library_path()),
-         str(SOURCE)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        [build.KERNELS.compiler(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
+         str(library_path()), str(SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def finish_build(proc: subprocess.Popen) -> ctypes.CDLL:

@@ -7,12 +7,11 @@ Prints one JSON line:
 
 * ``load_s`` — the helper's first use (its build by ``cc`` if
   ``build/host/`` holds no library for the source);
-* ``equal`` — for RN152-W1A2 on BRAM18 and on an Alveo U50, twelve passes
-  through the helper and through the Python loop from equal generators give
+* ``equal`` — for RN152-W1A2 on BRAM18 and on an Alveo U50, twelve full
+  passes (`nfd.nfd_from_scratch`, the helper) and the Python loop
+  (`nfd.nfd_pack_order`) over the same orders from equal generators give
   equal bins, kinds, costs and generator states;
 * ``pass_ms`` — the mean of 60 passes each way, nothing kept alive;
-* ``passes`` — the counters ``nfd.pass.native`` / ``nfd.pass.python`` over a
-  GA-NFD start (Table-2 row, 75 passes) and an SA-S x64 start @U50;
 * ``start`` — a GA start (75 passes, kept alive) three times with the
   collector as it is, then three times after ``gc.freeze()``, each with the
   collector's own time (``gc.callbacks``) and its collections by generation;
@@ -34,7 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import numpy as np  # noqa: E402
 
 import repro_torch.core as c  # noqa: E402
-from repro_torch import obs  # noqa: E402
+from repro_torch.core.problem import Solution, greedy_assign_kinds  # noqa: E402
 from repro_torch.core import nfd, nfd_native  # noqa: E402
 
 NAME = "RN152-W1A2"
@@ -58,14 +57,12 @@ class Collector:
         self.s, self.n = 0.0, [0, 0, 0]
 
 
-def python_loop(fn):
-    """Run ``fn`` with the helper unavailable (the Python loop)."""
-    saved = nfd_native._lib
-    nfd_native._lib = None
-    try:
-        return fn()
-    finally:
-        nfd_native._lib = saved
+def python_loop(prob, rng, sort_by_width):
+    """`nfd.nfd_from_scratch` with the Python loop packing its order."""
+    order = rng.permutation(prob.n)
+    if sort_by_width:
+        order = order[np.argsort(prob.widths[order], kind="stable")]
+    return greedy_assign_kinds(Solution(prob, nfd.nfd_pack_order(prob, order, rng)))
 
 
 def main() -> None:
@@ -74,7 +71,7 @@ def main() -> None:
     args = ap.parse_args()
     out = {}
     t = time.perf_counter()
-    out["library"] = nfd_native.library() is not None
+    nfd_native.library()
     out["load_s"] = time.perf_counter() - t
     hp = c.hyperparams(NAME)
     out["equal"], out["pass_ms"] = {}, {}
@@ -85,26 +82,22 @@ def main() -> None:
             for sbw in (False, True):
                 ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
                 a = nfd.nfd_from_scratch(prob, ra, sort_by_width=sbw)
-                b = python_loop(lambda: nfd.nfd_from_scratch(prob, rb, sort_by_width=sbw))
+                b = python_loop(prob, rb, sbw)
                 ok &= (a.bins == b.bins and a.kinds.tolist() == b.kinds.tolist()
                        and a.cost() == b.cost() == a.cost_full()
                        and ra.bit_generator.state == rb.bit_generator.state)
         out["equal"][str(dev)] = bool(ok)
         rng = np.random.default_rng(1)
 
-        def passes():
+        def passes(start):
             t = time.perf_counter()
             for k in range(60):
-                nfd.nfd_from_scratch(prob, rng, sort_by_width=(k % 2 == 0))
+                start(prob, rng, k % 2 == 0)
             return (time.perf_counter() - t) / 60 * 1e3
 
-        out["pass_ms"][str(dev)] = {"native": passes(), "python": python_loop(passes)}
-    obs.reset_counters(["nfd.pass.native", "nfd.pass.python"])
-    c.pack(c.get_problem(NAME), "ga-nfd", max_generations=0, max_seconds=1e9,
-           device=args.device, **hp)
-    c.pack(c.get_problem(NAME, device="U50"), "sa-s", n_chains=64, max_iterations=0,
-           max_seconds=1e9, device=args.device)
-    out["passes"] = {k: obs.counter(k) for k in ("nfd.pass.native", "nfd.pass.python")}
+        out["pass_ms"][str(dev)] = {
+            "native": passes(lambda p, r, s: nfd.nfd_from_scratch(p, r, sort_by_width=s)),
+            "python": passes(python_loop)}
     col = Collector()
     t = time.perf_counter()
     c.pack(c.get_problem(NAME), "ga-nfd", seed=5, max_generations=100, max_seconds=1e9,
