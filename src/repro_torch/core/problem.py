@@ -55,6 +55,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from . import nfd_native
+
 # Xilinx BRAM18: 16K data bits + 2K parity bits.  Parity bits are usable as
 # data only for aspect widths >= 9, hence the capacity difference per mode.
 BRAM18_MODES: tuple[tuple[int, int], ...] = (
@@ -783,58 +785,16 @@ def greedy_assign_kinds(sol: Solution) -> Solution:
     unit-cost regret per freed primitive moves to a kind with room.  Leaves
     residual overflow — if no feasible move exists — to the engines'
     inventory penalty.  No-op on single-kind problems; consumes no RNG.
+
+    The table and the move loop run in C (`nfd_native.assign_kinds`), which
+    writes the kind lane and the rows of the moved bins, leaving them clean.
     """
     p = sol.problem
     if p.n_kinds == 1 or not p._any_bounded:
         return sol
     sol._refresh()
-    nb = len(sol.bins)
-    nk = p.n_kinds
-    g = sol._geom
-    wc = np.empty((nb, nk), dtype=np.int64)
-    prim = np.empty((nb, nk), dtype=np.int64)
-    for bi in range(nb):
-        w, h = int(g[bi, _GW]), int(g[bi, _GH])
-        for k in range(nk):
-            c = p._cost_mode_gap(w, h, k)
-            wc[bi, k] = c[0]
-            prim[bi, k] = c[3]
-    kinds = np.argmin(wc, axis=1).astype(np.int64)
-    counts = p._kind_counts_arr
-    used = np.zeros(nk, dtype=np.int64)
-    ar = np.arange(nb)
-    np.add.at(used, kinds, prim[ar, kinds])
-    # move selection is vectorized over bins per candidate target kind:
-    # large heterogeneous inits (hundreds of bins x population size) would
-    # otherwise spend seconds in nested python loops
-    for _ in range(nb + 1):
-        over = (counts >= 0) & (used > counts)
-        if not over.any():
-            break
-        cur_wc = wc[ar, kinds]
-        cur_prim = prim[ar, kinds]
-        movable = over[kinds] & (cur_prim > 0)
-        best = None  # (regret per freed primitive, bin, target kind)
-        for j in range(nk):
-            cand = movable & (kinds != j)
-            if counts[j] >= 0:
-                cand &= used[j] + prim[:, j] <= counts[j]
-            if not cand.any():
-                continue
-            regret = np.where(cand, (wc[:, j] - cur_wc) / cur_prim, np.inf)
-            bi = int(np.argmin(regret))
-            if best is None or regret[bi] < best[0]:
-                best = (float(regret[bi]), bi, j)
-        if best is None:
-            break
-        _, bi, j = best
-        used[kinds[bi]] -= prim[bi, kinds[bi]]
-        kinds[bi] = j
-        used[j] += prim[bi, j]
-    changed = np.flatnonzero(kinds != sol.kinds)
-    if changed.size:
-        sol.kinds[:] = kinds
-        sol.touch(*[int(b) for b in changed])
+    nfd_native.assign_kinds(p, sol.kinds, sol._geom)
+    sol._total_cost = None
     return sol
 
 
